@@ -22,20 +22,21 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from ccs_tpu.config import CcsConfig
-from ccs_tpu.io.bam import BamReader, BamRecord, BamWriter, make_ccs_header
-from ccs_tpu.io.datasetxml import write_consensusreadset
-from ccs_tpu.io.fastq import FastqWriter
-from ccs_tpu.io.pbi import build_index_from_records, read_pbi, write_pbi
-from ccs_tpu.models.chemistry import load_model
-from ccs_tpu.pipeline.qvbin import bin_qvs
-from ccs_tpu.pipeline.zmw import ConsensusResult, Subread, ZmwInput
-from ccs_tpu.report.metrics import ProgressReporter, write_zmw_metrics
-from ccs_tpu.report.stats import (RunStats, format_ccs_report,
-                                  format_ccs_report_strand,
-                                  format_summary_log, hifi_summary_dict,
-                                  report_json_dict)
-from ccs_tpu.statuses import ZmwStatus
+from ccs_tpu_torch.config import CcsConfig
+from ccs_tpu_torch.io.bam import (BamReader, BamRecord, BamWriter,
+                                  make_ccs_header)
+from ccs_tpu_torch.io.datasetxml import write_consensusreadset
+from ccs_tpu_torch.io.fastq import FastqWriter
+from ccs_tpu_torch.io.pbi import build_index_from_records, read_pbi, write_pbi
+from ccs_tpu_torch.models.chemistry import load_model
+from ccs_tpu_torch.pipeline.qvbin import bin_qvs
+from ccs_tpu_torch.pipeline.zmw import ConsensusResult, Subread, ZmwInput
+from ccs_tpu_torch.report.metrics import ProgressReporter, write_zmw_metrics
+from ccs_tpu_torch.report.stats import (RunStats, format_ccs_report,
+                                        format_ccs_report_strand,
+                                        format_summary_log, hifi_summary_dict,
+                                        report_json_dict)
+from ccs_tpu_torch.statuses import ZmwStatus
 from ccs_tpu_torch import __version__
 from ccs_tpu_torch.pipeline.engine import CcsEngine
 
@@ -382,7 +383,7 @@ def run(argv: Optional[list[str]] = None, device=None) -> int:
     # checkpoint/resume: durable per-batch temp writes + watermark (SURVEY §5)
     ckpt = None
     if cfg.tpu_resume_dir:
-        from ccs_tpu.pipeline.checkpoint import Checkpointer
+        from ccs_tpu_torch.pipeline.checkpoint import Checkpointer
         ckpt = Checkpointer(cfg.tpu_resume_dir, header)
         if ckpt.next_batch:
             stats.merge(ckpt.completed_stats())
@@ -478,11 +479,11 @@ def run(argv: Optional[list[str]] = None, device=None) -> int:
                                sum(len(r.seq) for r in written_records))
 
     if cfg.subsample_clr_perc > 0 and isinstance(src, str):
-        from ccs_tpu.io.datasetxml import write_subreadset
+        from ccs_tpu_torch.io.datasetxml import write_subreadset
         clr_xml = cfg.subsample_clr_file or f"{prefix}.subsampled.subreadset.xml"
         write_subreadset(clr_xml, os.path.abspath(src), sorted(set(clr_holes)))
         if pbi_path and os.path.exists(pbi_path):
-            from ccs_tpu.io.pbi import filter_pbi
+            from ccs_tpu_torch.io.pbi import filter_pbi
             sub_idx = filter_pbi(read_pbi(pbi_path), set(clr_holes))
             write_pbi(clr_xml + ".pbi", sub_idx)
         logger.info("CLR subsample: %d productive ZMWs -> %s",
@@ -510,7 +511,7 @@ def run(argv: Optional[list[str]] = None, device=None) -> int:
         with open(cfg.hifi_summary_json, "w") as fh:
             json.dump(hifi_summary_dict(stats), fh, indent=2)
     if args.tpu_stats_delta:
-        from ccs_tpu.pipeline.checkpoint import stats_delta_dict
+        from ccs_tpu_torch.pipeline.checkpoint import stats_delta_dict
         with open(args.tpu_stats_delta, "w") as fh:
             json.dump(stats_delta_dict(stats), fh)
     if ckpt is not None:

@@ -513,7 +513,8 @@ int ccs_hmm_launch_shape(int T, int C, int R, int* group, int* smem_bytes) {
   return 0;
 }
 
-const char* ccs_hmm_error_string(int code) {
+// Text of a cudaError_t code returned by any entry point of the library.
+const char* ccs_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

@@ -90,8 +90,12 @@ def load_library() -> ctypes.CDLL:
         lib.ccs_hmm_launch_shape.argtypes = [
             i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
         lib.ccs_hmm_launch_shape.restype = i32
-        lib.ccs_hmm_error_string.argtypes = [i32]
-        lib.ccs_hmm_error_string.restype = ctypes.c_char_p
+        lib.ccs_error_string.argtypes = [i32]
+        lib.ccs_error_string.restype = ctypes.c_char_p
+        lib.ccs_edit_distance_banded.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+        lib.ccs_edit_distance_banded.restype = i32
+        lib.ccs_edit_max_band.argtypes = []
+        lib.ccs_edit_max_band.restype = i32
         _lib = lib
         return lib
 
@@ -102,3 +106,22 @@ def launch_shape(T: int, C: int, R: int) -> tuple[int, int]:
     g, smem = ctypes.c_int(), ctypes.c_int()
     lib.ccs_hmm_launch_shape(T, C, R, ctypes.byref(g), ctypes.byref(smem))
     return g.value, smem.value
+
+
+def error_string(code: int) -> str:
+    """The CUDA runtime's text for an error code a kernel entry returned."""
+    return load_library().ccs_error_string(code).decode()
+
+
+def check_tensor(name, t, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of this dtype, shape and
+    device: a kernel entry takes raw pointers and checks nothing itself."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

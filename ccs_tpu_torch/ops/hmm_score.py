@@ -98,18 +98,6 @@ def kernel_tables(tables: dict):
     return ctx, pw
 
 
-def _check(name, t, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch(wrapper, fn_name, tpl, tlen, snr_bin, reads, rlens, cand, tables):
     from ccs_tpu_torch.ops import _build
     dev = tpl.device
@@ -117,17 +105,17 @@ def _launch(wrapper, fn_name, tpl, tlen, snr_bin, reads, rlens, cand, tables):
         raise RuntimeError(f"the CUDA scorer cannot run on {dev}")
     B, T = tpl.shape
     _, C, R = reads.shape
-    _check("tpl", tpl, torch.int8, (B, T), dev)
-    _check("tlen", tlen, torch.int32, (B,), dev)
-    _check("snr_bin", snr_bin, torch.int32, (B,), dev)
-    _check("reads", reads, torch.int8, (B, C, R), dev)
-    _check("rlens", rlens, torch.int32, (B, C), dev)
+    _build.check_tensor("tpl", tpl, torch.int8, (B, T), dev)
+    _build.check_tensor("tlen", tlen, torch.int32, (B,), dev)
+    _build.check_tensor("snr_bin", snr_bin, torch.int32, (B,), dev)
+    _build.check_tensor("reads", reads, torch.int8, (B, C, R), dev)
+    _build.check_tensor("rlens", rlens, torch.int32, (B, C), dev)
     if cand is not None:
-        _check("cand", cand, torch.bool, (B, T), dev)
+        _build.check_tensor("cand", cand, torch.bool, (B, T), dev)
     ctx, pw = kernel_tables(tables)
     n_snr = ctx.shape[0]
-    _check("ctx table", ctx, torch.float32, (n_snr, 16, 9), dev)
-    _check("pw table", pw, torch.float32, (n_snr, 8), dev)
+    _build.check_tensor("ctx table", ctx, torch.float32, (n_snr, 16, 9), dev)
+    _build.check_tensor("pw table", pw, torch.float32, (n_snr, 8), dev)
     lls = torch.empty((B, KINDS * T + 4), dtype=torch.float32, device=dev)
     ll0 = torch.empty((B,), dtype=torch.float32, device=dev)
     if B == 0:
@@ -146,7 +134,7 @@ def _launch(wrapper, fn_name, tpl, tlen, snr_bin, reads, rlens, cand, tables):
         rc = getattr(lib, fn_name)(*args)
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc} "
-                           f"({lib.ccs_hmm_error_string(rc).decode()})")
+                           f"({_build.error_string(rc)})")
     wrapper.launches += 1
     return lls, ll0
 

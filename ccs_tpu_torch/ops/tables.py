@@ -16,13 +16,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-import ccs_tpu
-from ccs_tpu.models.chemistry import ArrowParams
+from ccs_tpu_torch.models import chemistry
+from ccs_tpu_torch.models.chemistry import ArrowParams
 
 PARAM_KEYS = ("trans", "emit_match", "emit_stick", "snr_edges", "pw_match",
               "pw_ins")
-CLEAN_PERR_PATH = os.path.join(os.path.dirname(ccs_tpu.__file__), "models",
-                               "data", "clean_perr_v0.npy")
+CLEAN_PERR_PATH = os.path.join(os.path.dirname(chemistry.__file__), "data",
+                               "clean_perr_v0.npy")
 
 
 def load_clean_perr() -> np.ndarray:

@@ -22,11 +22,11 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ccs_tpu.config import CcsConfig
-from ccs_tpu.models.chemistry import ArrowParams, default_params
-from ccs_tpu.pipeline.zmw import (ConsensusResult, ZmwInput, ZmwWorkItem,
-                                  finalize_zmw)
-from ccs_tpu.statuses import ZmwStatus
+from ccs_tpu_torch.config import CcsConfig
+from ccs_tpu_torch.models.chemistry import ArrowParams, default_params
+from ccs_tpu_torch.pipeline.zmw import (ConsensusResult, ZmwInput,
+                                        ZmwWorkItem, finalize_zmw)
+from ccs_tpu_torch.statuses import ZmwStatus
 from ccs_tpu_torch.ops.tables import params_to_torch
 from ccs_tpu_torch.parallel.step import make_polish_step
 from ccs_tpu_torch.pipeline.prepare import _load_control, prepare_many
@@ -98,7 +98,7 @@ class CcsEngine:
         for res in results:
             if res.is_control:
                 # spike-in controls never count as HiFi yield
-                from ccs_tpu.pipeline.adapters import FF_CONTROL
+                from ccs_tpu_torch.pipeline.adapters import FF_CONTROL
                 res.ff |= FF_CONTROL
                 res.status = (ZmwStatus.CONTROL_SUCCESS
                               if res.status == ZmwStatus.SUCCESS

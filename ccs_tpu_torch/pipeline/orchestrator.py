@@ -17,7 +17,7 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import TYPE_CHECKING, Callable, Iterable
 
-from ccs_tpu.pipeline.zmw import ConsensusResult, ZmwInput
+from ccs_tpu_torch.pipeline.zmw import ConsensusResult, ZmwInput
 from ccs_tpu_torch.pipeline.prepare import prepare_task
 
 if TYPE_CHECKING:

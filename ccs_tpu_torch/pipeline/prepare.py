@@ -13,10 +13,10 @@ import logging
 import time
 from typing import Sequence
 
-from ccs_tpu.config import CcsConfig
-from ccs_tpu.pipeline.zmw import (ConsensusResult, ZmwInput, ZmwWorkItem,
-                                  prepare_zmw)
-from ccs_tpu.statuses import ZmwStatus
+from ccs_tpu_torch.config import CcsConfig
+from ccs_tpu_torch.pipeline.zmw import (ConsensusResult, ZmwInput,
+                                        ZmwWorkItem, prepare_zmw)
+from ccs_tpu_torch.statuses import ZmwStatus
 
 logger = logging.getLogger("ccs_tpu")
 
@@ -32,7 +32,7 @@ def _load_control(cfg: CcsConfig):
             path = os.path.join(bundle, "controls.fasta")
     if not path:
         return None
-    from ccs_tpu.io.fastq import read_fasta
+    from ccs_tpu_torch.io.fastq import read_fasta
     seqs = read_fasta(path)
     if not seqs:
         return None
@@ -47,7 +47,7 @@ def prepare_many(zmws: Sequence[ZmwInput], cfg: CcsConfig, params,
     work: list[tuple[ZmwInput, str]] = []
     for z in zmws:
         if cfg.by_strand:
-            from ccs_tpu.pipeline.zmw import split_by_strand
+            from ccs_tpu_torch.pipeline.zmw import split_by_strand
             f, r = split_by_strand(z)
             work.append((f, "fwd"))
             work.append((r, "rev"))
@@ -68,7 +68,7 @@ def prepare_many(zmws: Sequence[ZmwInput], cfg: CcsConfig, params,
                 and item.result.status == ZmwStatus.HETERODUPLEXES):
             # --hd-finder: split the heteroduplex ZMW on the fly into
             # single-strand runs (mode-heteroduplex-filtering.md:25-39)
-            from ccs_tpu.pipeline.zmw import split_by_strand
+            from ccs_tpu_torch.pipeline.zmw import split_by_strand
             import dataclasses as _dc
             ss_cfg = _dc.replace(cfg, by_strand=True, hd_finder=False)
             for zz, ss in zip(split_by_strand(z), ("fwd", "rev")):

@@ -5,11 +5,16 @@
 Phases (each raises on failure, so the script exits non-zero and prints
 no result line):
 1. environment: the card (nvidia-smi name and power limit), torch/CUDA
-   versions, whether the native host aligner loaded;
+   versions; the port's native host aligner must load (with the NumPy
+   fallbacks every time below would describe another program);
 2. build the CUDA kernels from ccs_tpu_torch/csrc into ccs_tpu_torch/build;
-3. each kernel against its plain PyTorch version on the card, at the
-   production shapes (2048 windows x 16 subreads, T=44, R=39, simulator
-   reads, about a third of positions flagged), with their median times;
+3. each kernel against its plain PyTorch version on the card, with their
+   median times: the two scorers at the production shapes (2048 windows x
+   16 subreads, T=44, R=39, simulator reads, about a third of positions
+   flagged); the banded edit distance on every subread of the 400
+   simulated ZMWs against its ZMW's true insert (band 64, one launch),
+   also against the dense oracle, then driven once through its entry
+   point with its launches counted;
 4. the CLI main path (``ccs_tpu_torch.cli.run``) on 400 simulated 2 kb
    10-pass ZMWs, then on a subset with --disable-heuristics; checks the
    report, the BAM, and that both kernels were launched; then times the
@@ -17,6 +22,12 @@ no result line):
 5. the GPU engine against the CPU engine (plain versions) on 16 ZMWs.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
+
+``bound_ms`` of a kernel is the least time the card could take for the same
+work on this run's inputs: the larger of bytes moved (every input and
+output tensor once) over the memory rate and operations over the peak rate
+of their type outside the tensor cores. The peaks are NVIDIA's published
+H100 SXM figures at the full 700 W power limit.
 """
 
 from __future__ import annotations
@@ -35,6 +46,15 @@ E2E_ZMWS, E2E_INSERT, E2E_PASSES, E2E_SNR = 400, 2000, 10, 9.0
 DENSE_SUBSET = 24
 ENGINE_ZMWS = 16
 LL0_TOL, LLS_TOL, QV_TOL = 2e-3, 5e-3, 1e-3
+EDIT_BAND, EDIT_ORACLE_PAIRS = 64, 8
+# H100 SXM peaks: HBM3 bytes/s; float32 FLOP/s outside the tensor cores
+# (128 lanes x 2 per FMA per SM); int32 op/s (64 lanes per SM, no FMA: a
+# quarter of the float32 figure)
+HBM_BYTES_S, FP32_FLOP_S, INT32_OP_S = 3.35e12, 67e12, 16.75e12
+# float32 operations per cell of the scorer's recurrences as hmm_score.cu
+# writes them: a column step (forward or backward) and a three-operator
+# bridge step; integer operations per cell of the edit-distance recurrence
+SWEEP_FLOPS, BRIDGE_FLOPS, EDIT_OPS = 21, 59, 8
 
 
 def log(msg: str) -> None:
@@ -51,8 +71,11 @@ def phase_environment():
     log(smi.stdout.strip().splitlines()[0])
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    from ccs_tpu import native
-    log(f"native host aligner loaded: {native.load() is not None}")
+    from ccs_tpu_torch import native
+    if native.load() is None:
+        raise RuntimeError("the port's native host aligner did not load "
+                           "(g++ build failed or CCS_TPU_NO_NATIVE is set)")
+    log("native host aligner loaded: True")
 
 
 def phase_build():
@@ -74,9 +97,9 @@ def window_batch(rng, params):
     """Production-shape windows as bench.py builds them: simulator reads at
     snr bin 4, 0-1 injected template errors, pileup-vote candidate masks."""
     import numpy as np
-    from ccs_tpu.pipeline.draft import _pileup_consensus
-    from ccs_tpu.pipeline.windows import candidate_priority_from_stats
-    from ccs_tpu.sim.simulator import simulate_read
+    from ccs_tpu_torch.pipeline.draft import _pileup_consensus
+    from ccs_tpu_torch.pipeline.windows import candidate_priority_from_stats
+    from ccs_tpu_torch.sim.simulator import simulate_read
     tpl = np.full((W, T_CAP), -1, np.int8)
     tlen = np.zeros(W, np.int32)
     reads = np.full((W, C, R_CAP), -1, np.int8)
@@ -119,6 +142,29 @@ def _median_ms(fn, reps: int) -> float:
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def _bound(ops: float, peak: float, nbytes: int) -> tuple[float, str]:
+    """(bound_ms, bound_by) from an operation count and the bytes moved."""
+    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _scorer_flops(tlen, rlens, cand) -> float:
+    """float32 operations the scorer needs for these windows: per live
+    subread of rl bases, 2*tl+1 column steps and 8 bridges per scored
+    position (+4 prepends), each over rl+1 cells."""
+    import numpy as np
+    tl = tlen.astype(np.int64)
+    cells = np.where(rlens >= 0, np.minimum(rlens, R_CAP) + 1, 0).sum(axis=1)
+    pos_ok = np.arange(T_CAP)[None, :] < tl[:, None]
+    npos = (pos_ok if cand is None else pos_ok & cand).sum(axis=1)
+    return float((cells * (SWEEP_FLOPS * (2 * tl + 1)
+                           + BRIDGE_FLOPS * (8 * npos + 4))).sum())
 
 
 def phase_kernels(params, tables):
@@ -174,16 +220,138 @@ def phase_kernels(params, tables):
             raise RuntimeError(f"{name}: rerun is not bit-identical")
         ms = _median_ms(lambda: kern(*args), 11)
         plain_ms = _median_ms(lambda: plain(*args), 3)
+        ctx, pw = hmm_score.kernel_tables(tables)
+        bound_ms, bound_by = _bound(
+            _scorer_flops(arrs[1], arrs[4], arrs[5] if extra else None),
+            FP32_FLOP_S, _nbytes(*args[:-1], ctx, pw, lls_k, ll0_k))
         log(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-            f"(median, {W} windows x {C} subreads)")
+            f"(median, {W} windows x {C} subreads); bound {bound_ms:.4f} ms "
+            f"by {bound_by}")
         rows.append({"name": name, "route": "cuda",
                      "source": "ccs_tpu_torch/csrc/hmm_score.cu",
                      "replaces": ("ccs_tpu/ops/hmm_score_pallas.py:582"
                                   if extra else
                                   "ccs_tpu/ops/hmm_score_pallas.py:151"),
                      "launches": 0, "max_abs_err": max(d0, d),
-                     "ms": ms, "plain_ms": plain_ms})
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "library_ms": None})
     return rows
+
+
+def edit_pairs(sims):
+    """Every subread of the simulated ZMWs, brought to the forward strand,
+    against its ZMW's true insert: (tpl, tlen, reads, rlens) numpy arrays."""
+    import numpy as np
+    from ccs_tpu_torch.ops import dna
+    pairs = [(dna.revcomp(read) if strand else read, z.insert)
+             for z in sims for read, strand in zip(z.subreads, z.strands)]
+    n = len(pairs)
+    tlen = np.array([len(t) for _, t in pairs], np.int32)
+    rlens = np.array([len(r) for r, _ in pairs], np.int32)
+    tpl = np.full((n, int(tlen.max())), -1, np.int8)
+    reads = np.full((n, int(rlens.max())), -1, np.int8)
+    for b, (r, t) in enumerate(pairs):
+        tpl[b, :len(t)] = t
+        reads[b, :len(r)] = r
+    return tpl, tlen, reads, rlens
+
+
+def _edit_cells(tlen, rlens, band: int) -> float:
+    """Cell updates the banded distance needs for these pairs: a pair whose
+    lengths differ by more than the band is BIG from its lengths alone and
+    needs none; any other needs, in each read row i of 1..rlen, the band's
+    cells whose template position j lies in [0, tlen]."""
+    import numpy as np
+    cells = 0
+    for tl, rl in zip(tlen.tolist(), rlens.tolist()):
+        if abs(tl - rl) <= band:
+            i = np.arange(1, rl + 1)
+            cells += int(np.maximum(np.minimum(tl, i + band)
+                                    - np.maximum(0, i - band) + 1, 0).sum())
+    return float(cells)
+
+
+def phase_edit_kernel(sims):
+    """The banded edit-distance kernel against its plain version and the
+    dense oracle at the 400-ZMW 2 kb size, then driven once through its
+    entry point with its launches counted; returns its row."""
+    import numpy as np
+    import torch
+    from ccs_tpu_torch.ops import align_banded
+    from ccs_tpu_torch.ops.align_banded import BIG
+    dev = torch.device("cuda")
+    arrs = edit_pairs(sims)
+    tpl, tlen, reads, rlens = arrs
+    args = tuple(torch.from_numpy(a).to(dev) for a in arrs)
+    kern = align_banded.edit_distance_banded
+
+    def clip(d):                    # every value >= BIG/2 means "left the band"
+        return torch.where(d >= BIG / 2, torch.full_like(d, BIG), d)
+
+    got = kern(*args, band=EDIT_BAND)
+    torch.cuda.synchronize()
+    ref = align_banded.edit_distance_banded_plain(*args, band=EDIT_BAND)
+    if got.shape != (len(tlen),) or got.dtype != torch.float32:
+        raise RuntimeError("edit_distance_banded: wrong output shape or type")
+    err = float((clip(got) - clip(ref)).abs().max())
+    in_band = (got < BIG / 2).cpu().numpy()
+    log(f"edit_distance_banded: {len(tlen)} pairs, TMAX {tpl.shape[1]}, "
+        f"RMAX {reads.shape[1]}, band {EDIT_BAND}; in band "
+        f"{in_band.mean():.4f} of pairs; max |kernel - plain| = {err:g} "
+        f"(bar: exact)")
+    if err != 0.0:
+        raise RuntimeError("edit_distance_banded: kernel disagrees with "
+                           "plain version")
+    if not torch.equal(got, kern(*args, band=EDIT_BAND)):
+        raise RuntimeError("edit_distance_banded: rerun is not bit-identical")
+    checked = np.flatnonzero(in_band & (tlen >= E2E_INSERT))
+    checked = checked[:: max(1, len(checked) // EDIT_ORACLE_PAIRS)]
+    checked = checked[:EDIT_ORACLE_PAIRS]
+    if len(checked) < EDIT_ORACLE_PAIRS:
+        raise RuntimeError(f"only {len(checked)} in-band 2 kb pairs")
+    got_np = got.cpu().numpy()
+    for b in checked:
+        want = align_banded.edit_distance_dense_oracle(
+            reads[b, :rlens[b]], tpl[b, :tlen[b]])
+        if got_np[b] != want:
+            raise RuntimeError(f"edit_distance_banded: pair {b} gives "
+                               f"{got_np[b]}, dense oracle {want}")
+    log(f"edit_distance_banded: equal to the dense oracle on "
+        f"{len(checked)} in-band 2 kb pairs (distances "
+        f"{[int(got_np[b]) for b in checked]})")
+    # a length difference beyond the band reports BIG; an empty read costs
+    # its template's length
+    edge = kern(torch.zeros((2, 40), dtype=torch.int8, device=dev),
+                torch.tensor([40, 12], dtype=torch.int32, device=dev),
+                torch.full((2, 8), -1, dtype=torch.int8, device=dev),
+                torch.tensor([4, 0], dtype=torch.int32, device=dev), band=16)
+    if not (float(edge[0]) >= BIG / 2 and float(edge[1]) == 12.0):
+        raise RuntimeError(f"edit_distance_banded: edge cases give {edge}")
+
+    ms = _median_ms(lambda: kern(*args, band=EDIT_BAND), 11)
+    plain_ms = _median_ms(lambda: align_banded.edit_distance_banded_plain(
+        *args, band=EDIT_BAND), 3)
+    bound_ms, bound_by = _bound(
+        EDIT_OPS * _edit_cells(tlen, rlens, EDIT_BAND), INT32_OP_S,
+        _nbytes(*args, got))
+    log(f"edit_distance_banded: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+        f"(median, {len(tlen)} pairs); bound {bound_ms:.4f} ms by {bound_by}")
+
+    # this slice's path: the entry point, once, at this size
+    kern.launches = 0
+    driven = kern(*args, band=EDIT_BAND)
+    torch.cuda.synchronize()
+    launches = kern.launches
+    if launches <= 0:
+        raise RuntimeError("edit_distance_banded was not launched")
+    if not torch.equal(driven, got):
+        raise RuntimeError("edit_distance_banded: driven run differs")
+    return {"name": "edit_distance_banded", "route": "cuda",
+            "source": "ccs_tpu_torch/csrc/edit_banded.cu",
+            "replaces": "ccs_tpu/ops/align_pallas.py:70",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
 
 
 class _WallSplit(logging.Handler):
@@ -207,8 +375,8 @@ def _read_report(path: str) -> dict:
 
 
 def phase_main_path(sims, workdir):
-    from ccs_tpu.io.bam import BamReader
-    from ccs_tpu.sim.simulator import write_subreads_bam
+    from ccs_tpu_torch.io.bam import BamReader
+    from ccs_tpu_torch.sim.simulator import write_subreads_bam
     from ccs_tpu_torch import cli
     from ccs_tpu_torch.ops import hmm_score
     in_bam = os.path.join(workdir, "in.subreads.bam")
@@ -267,7 +435,7 @@ def phase_main_path(sims, workdir):
 
 
 def _zin(z):
-    from ccs_tpu.pipeline.zmw import Subread, ZmwInput
+    from ccs_tpu_torch.pipeline.zmw import Subread, ZmwInput
     subs, qpos = [], 0
     for read, cx in zip(z.subreads, z.cx):
         subs.append(Subread(seq=read, cx=cx, qs=qpos, qe=qpos + len(read)))
@@ -277,7 +445,7 @@ def _zin(z):
 
 def phase_gpu_vs_cpu(sims, params):
     import numpy as np
-    from ccs_tpu.config import CcsConfig
+    from ccs_tpu_torch.config import CcsConfig
     from ccs_tpu_torch.pipeline.engine import CcsEngine
     zmws = [_zin(z) for z in sims[:ENGINE_ZMWS]]
     # 256-window chunks keep the CPU side's padding rows few
@@ -307,8 +475,8 @@ def main() -> int:
     phase_environment()
     import numpy as np
     import torch
-    from ccs_tpu.models.chemistry import default_params, load_model
-    from ccs_tpu.sim.simulator import make_subreads_header, simulate_zmw
+    from ccs_tpu_torch.models.chemistry import default_params, load_model
+    from ccs_tpu_torch.sim.simulator import make_subreads_header, simulate_zmw
     from ccs_tpu_torch.ops.tables import params_to_torch
     from ccs_tpu_torch.pipeline.orchestrator import shutdown_pool
     phase_build()
@@ -319,6 +487,7 @@ def main() -> int:
                          snr=E2E_SNR) for h in range(E2E_ZMWS)]
     log(f"simulated {E2E_ZMWS} x {E2E_INSERT // 1000} kb {E2E_PASSES}-pass "
         f"ZMWs in {time.monotonic() - t0:.1f} s")
+    edit_row = phase_edit_kernel(sims)
     # scratch files stay inside the checkout, in the ignored build dir
     scratch = os.path.join(ROOT, "ccs_tpu_torch", "build")
     os.makedirs(scratch, exist_ok=True)
@@ -332,8 +501,11 @@ def main() -> int:
         shutdown_pool()
     for row in rows:
         row["launches"] = launches[row["name"]]
-    if "jax" in sys.modules:
-        raise RuntimeError("the port's main path imported jax")
+    rows.append(edit_row)
+    foreign = sorted(m for m in sys.modules if m in ("jax", "ccs_tpu")
+                     or m.startswith(("jax.", "ccs_tpu.")))
+    if foreign:
+        raise RuntimeError(f"the port's run imported {foreign}")
     if not np.isfinite([r["ms"] for r in rows]).all():
         raise RuntimeError("kernel timing failed")
     log(json.dumps({"kernels": rows}))

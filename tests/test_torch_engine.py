@@ -16,16 +16,18 @@ import pytest
 import torch
 
 from ccs_tpu.cli import run as run_jax
-from ccs_tpu.config import CcsConfig
-from ccs_tpu.io.bam import BamReader
+from ccs_tpu.config import CcsConfig as JaxConfig
 from ccs_tpu.pipeline import orchestrator as jax_orchestrator
+from ccs_tpu.pipeline import zmw as jax_zmw
 from ccs_tpu.pipeline.engine import CcsEngine as JaxEngine
-from ccs_tpu.pipeline.zmw import Subread, ZmwInput
-from ccs_tpu.sim.simulator import simulate_zmw, write_subreads_bam
-from ccs_tpu.statuses import ZmwStatus
 from ccs_tpu_torch import cli
+from ccs_tpu_torch.config import CcsConfig
+from ccs_tpu_torch.io.bam import BamReader
+from ccs_tpu_torch.pipeline import zmw as port_zmw
 from ccs_tpu_torch.pipeline.engine import CcsEngine
 from ccs_tpu_torch.pipeline.orchestrator import shutdown_pool
+from ccs_tpu_torch.sim.simulator import simulate_zmw, write_subreads_bam
+from ccs_tpu_torch.statuses import ZmwStatus
 
 # The suite runs several pytest workers on a few cores; torch's intra-op
 # threads on these small tensors only contend with them.
@@ -44,12 +46,17 @@ def _stop_prepare_pools():
         jax_orchestrator._PROC_POOL = None
 
 
-def _zin(z):
+def _zin(z, zmw=port_zmw):
+    """A simulated ZMW as the engine's input, in the classes of the package
+    whose engine takes it: arrays cross between the packages, objects do
+    not."""
     subs, qpos = [], 0
     for read, cx in zip(z.subreads, z.cx):
-        subs.append(Subread(seq=read, cx=cx, qs=qpos, qe=qpos + len(read)))
+        subs.append(zmw.Subread(seq=read, cx=cx, qs=qpos,
+                                qe=qpos + len(read)))
         qpos += len(read) + 40
-    return ZmwInput(hole=z.hole, movie="m_test", subreads=subs, snr=z.snr)
+    return zmw.ZmwInput(hole=z.hole, movie="m_test", subreads=subs,
+                        snr=z.snr)
 
 
 def test_engine_matches_jax_engine():
@@ -60,23 +67,57 @@ def test_engine_matches_jax_engine():
     so that its CUDA and CPU paths agree. Where the JAX rounding picks
     another member, the candidate flags that follow the pick differ and
     QVs at those positions differ. These holes have no such tie."""
-    cfg = CcsConfig(tpu_window_buckets=(64,), tpu_coverage_buckets=(16,),
-                    tpu_window_coverage_cap=16)
+    kw = dict(tpu_window_buckets=(64,), tpu_coverage_buckets=(16,),
+              tpu_window_coverage_cap=16)
     sims = [simulate_zmw(hole=h, insert_len=250, n_passes=n, snr=9.0)
             for h, n in ((6, 8), (8, 10), (7, 2), (9, 8), (11, 10), (12, 8))]
-    zmws = [_zin(z) for z in sims]
-    ref = JaxEngine(cfg, devices=jax.devices()[:1]).process_batch(zmws)
-    got = CcsEngine(cfg, None, "cpu").process_batch(zmws)
+    ref = JaxEngine(JaxConfig(**kw), devices=jax.devices()[:1]).process_batch(
+        [_zin(z, jax_zmw) for z in sims])
+    got = CcsEngine(CcsConfig(**kw), None, "cpu").process_batch(
+        [_zin(z) for z in sims])
     assert got[2].status == ZmwStatus.TOO_FEW_PASSES
     assert sum(r.status == ZmwStatus.SUCCESS for r in got) == 5
     for r, g in zip(ref, got):
-        assert r.status == g.status, (r.hole, r.status, g.status)
+        assert r.status.name == g.status.name, (r.hole, r.status, g.status)
         if r.seq is None:
             assert g.seq is None
             continue
         np.testing.assert_array_equal(g.seq, r.seq)
         np.testing.assert_allclose(g.qv, r.qv, atol=1e-3)
         assert abs(g.rq - r.rq) < 1e-3
+
+
+# The open tie divergence (ROADMAP Queue 3): holes 0..33 at 250 bp with
+# 8 + hole % 3 passes, SNR 9. Holes whose stitched sequence differs from
+# the JAX engine's, and holes with equal sequences whose QVs differ by more
+# than 1e-3, on the CPU.
+TIE_HOLES = [(h, 8 + h % 3) for h in range(34)]
+TIE_SEQ_DIFFS = [25]
+TIE_QV_DIFFS = [0, 1, 2, 5, 7, 10, 13, 16, 20, 23, 24, 27, 29, 31]
+
+
+@pytest.mark.slow
+def test_tie_divergence_from_jax_engine_is_unchanged():
+    """Records where the port's leftmost-member tie rule and the JAX loop's
+    rounding part ways, so that a change that moves the counts is seen.
+    Fixing the divergence means emptying the two lists above."""
+    kw = dict(tpu_window_buckets=(64,), tpu_coverage_buckets=(16,),
+              tpu_window_coverage_cap=16)
+    sims = [simulate_zmw(hole=h, insert_len=250, n_passes=n, snr=9.0)
+            for h, n in TIE_HOLES]
+    ref = JaxEngine(JaxConfig(**kw), devices=jax.devices()[:1]).process_batch(
+        [_zin(z, jax_zmw) for z in sims])
+    got = CcsEngine(CcsConfig(**kw), None, "cpu").process_batch(
+        [_zin(z) for z in sims])
+    seq_diffs, qv_diffs = [], []
+    for r, g in zip(ref, got):
+        assert r.status.name == g.status.name == "SUCCESS"
+        if not np.array_equal(r.seq, g.seq):
+            seq_diffs.append(r.hole)
+        elif np.abs(r.qv - g.qv).max() > 1e-3:
+            qv_diffs.append(r.hole)
+    assert seq_diffs == TIE_SEQ_DIFFS
+    assert qv_diffs == TIE_QV_DIFFS
 
 
 @pytest.fixture(scope="module")
@@ -147,7 +188,7 @@ def test_port_imports_no_jax():
     out = _python(
         "import sys, numpy as np, torch\n"
         "import ccs_tpu_torch, ccs_tpu_torch.cli\n"
-        "from ccs_tpu.models.chemistry import default_params\n"
+        "from ccs_tpu_torch.models.chemistry import default_params\n"
         "from ccs_tpu_torch.ops.tables import params_to_torch\n"
         "from ccs_tpu_torch.ops.hmm_score import score_dense\n"
         "t = lambda a: torch.from_numpy(np.asarray(a))\n"
@@ -156,8 +197,9 @@ def test_port_imports_no_jax():
         " t(np.zeros((1, 2, 8), np.int8)), t(np.array([[8, 7]], np.int32)),"
         " params_to_torch(default_params(), 'cpu'))\n"
         "assert bool(torch.isfinite(ll0).all())\n"
-        "print('jax' in sys.modules)\n")
-    assert out.strip() == "False"
+        "print(sorted(m for m in sys.modules if m in ('jax', 'ccs_tpu')"
+        " or m.startswith(('jax.', 'ccs_tpu.'))))\n")
+    assert out.strip() == "[]"
 
 
 def test_prepare_module_imports_neither_torch_nor_jax():

@@ -16,6 +16,7 @@ import torch
 from ccs_tpu.models.chemistry import default_params
 from ccs_tpu.ops.hmm_jax import params_to_device
 from ccs_tpu.pipeline import polish_fused as pj
+from ccs_tpu_torch.models.chemistry import default_params as port_params
 from ccs_tpu_torch.ops.tables import params_to_torch
 from ccs_tpu_torch.parallel.step import make_polish_step
 from ccs_tpu_torch.pipeline import polish_fused as pt
@@ -27,7 +28,7 @@ torch.set_num_threads(1)
 
 PARAMS = default_params()
 TJ = params_to_device(PARAMS)
-TT = params_to_torch(PARAMS, "cpu")
+TT = params_to_torch(port_params(), "cpu")
 
 
 def _rand_lls(rng, B, T):

@@ -13,12 +13,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
-from ccs_tpu.models.chemistry import default_params, pack_read_pw
+from ccs_tpu.models import chemistry as jax_chemistry
+from ccs_tpu.models.chemistry import pack_read_pw
 from ccs_tpu.ops import hmm_oracle
 from ccs_tpu.ops.hmm_jax import params_to_device
 from ccs_tpu.ops.hmm_score_pallas import score_all_pallas, score_sparse_pallas
 from ccs_tpu.pipeline.polish_fused import mutation_valid_new, score_all_xla
 from ccs_tpu.sim.simulator import simulate_read
+from ccs_tpu_torch.models import chemistry as port_chemistry
 from ccs_tpu_torch.ops import _build, hmm_score
 from ccs_tpu_torch.ops.tables import params_to_torch
 
@@ -29,14 +31,20 @@ torch.set_num_threads(1)
 LL0_TOL, LLS_TOL = 2e-3, 5e-3
 
 
-def _params(pw: bool):
-    p = default_params()
+def _params(pw: bool, chemistry=jax_chemistry):
+    """The test's ArrowParams, as the JAX package's class (inputs and the
+    JAX side) or, with ``port_chemistry``, as the port's own class."""
+    p = chemistry.default_params()
     if pw:   # non-trivial pulse-width factors (bin 0 stays 1)
         rng = np.random.default_rng(42)
         p.pw_match = rng.uniform(0.6, 1.4, (8, 4)).astype(np.float32)
         p.pw_ins = rng.uniform(0.5, 2.0, (8, 4)).astype(np.float32)
         p.pw_match[:, 0] = p.pw_ins[:, 0] = 1.0
     return p
+
+
+def _port_tables(pw: bool, device="cpu"):
+    return params_to_torch(_params(pw, port_chemistry), device)
 
 
 def simulate_batch(rng, params, B, C, t_cap, r_cap, tl_range=(12, 22),
@@ -95,7 +103,7 @@ def test_plain_dense_matches_xla(seed, pw):
                              32, pw=pw)
     lls_x, ll0_x = score_all_xla(*_jax(arrs), params_to_device(params))
     lls_t, ll0_t = hmm_score.score_dense_plain(*_torch(arrs),
-                                               params_to_torch(params, "cpu"))
+                                               _port_tables(pw))
     valid = np.asarray(mutation_valid_new(*_jax(arrs[:2])))
     np.testing.assert_allclose(ll0_t.numpy(), np.asarray(ll0_x),
                                atol=LL0_TOL)
@@ -114,7 +122,7 @@ def test_plain_dense_matches_pallas_interpret():
     lls_p, ll0_p = score_all_pallas(*_jax(arrs), params_to_device(params),
                                     interpret=True)
     lls_t, ll0_t = hmm_score.score_dense(*_torch(arrs),
-                                         params_to_torch(params, "cpu"))
+                                         _port_tables(False))
     valid = np.asarray(mutation_valid_new(*_jax(arrs[:2])))
     np.testing.assert_allclose(ll0_t.numpy(), np.asarray(ll0_p),
                                atol=LL0_TOL)
@@ -132,7 +140,7 @@ def test_plain_sparse_matches_pallas_interpret():
                                        interpret=True)
     lls_t, ll0_t = hmm_score.score_sparse(
         *_torch(arrs), torch.from_numpy(cand),
-        params_to_torch(params, "cpu"))
+        _port_tables(False))
     np.testing.assert_allclose(ll0_t.numpy(), np.asarray(ll0_p),
                                atol=LL0_TOL)
     valid = np.asarray(mutation_valid_new(*_jax(arrs[:2])))
@@ -166,7 +174,7 @@ def test_plain_matches_numpy_oracle(pw):
                              pw=pw)
     tpl, tlen, snr, reads, rlens = arrs
     lls, ll0 = hmm_score.score_dense(*_torch(arrs),
-                                     params_to_torch(params, "cpu"))
+                                     _port_tables(pw))
     T = tpl.shape[1]
 
     def oracle(b, t):
@@ -197,10 +205,10 @@ def test_wrapper_never_falls_back_off_cpu():
     meta = tuple(torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
                              device="meta") for a in arrs)
     with pytest.raises(RuntimeError, match="cannot run on meta"):
-        hmm_score.score_dense(*meta, params_to_torch(params, "cpu"))
+        hmm_score.score_dense(*meta, _port_tables(False))
     with pytest.raises(RuntimeError, match="cannot run on cpu"):
         hmm_score._launch(hmm_score.score_dense, "ccs_hmm_score_dense",
-                          *_torch(arrs), None, params_to_torch(params, "cpu"))
+                          *_torch(arrs), None, _port_tables(False))
 
 
 def test_failed_build_raises(monkeypatch, tmp_path):
@@ -228,7 +236,7 @@ def test_kernel_matches_plain(sparse):
     arrs, _ = simulate_batch(rng, params, 64, 8, 44, 39, tl_range=(1, 45),
                              pw=True)
     cand = torch.from_numpy(rng.random(arrs[0].shape) < 0.4).cuda()
-    tables = params_to_torch(params, "cuda")
+    tables = _port_tables(True, "cuda")
     args = _torch(arrs, "cuda")
     if sparse:
         got = hmm_score.score_sparse(*args, cand, tables)

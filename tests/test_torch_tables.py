@@ -10,7 +10,9 @@ from ccs_tpu.models.chemistry import default_params, load_model
 from ccs_tpu.ops import hmm_jax
 from ccs_tpu.pipeline.polish_fused import CLEAN_PERR_V0
 from ccs_tpu.sim.simulator import make_subreads_header
+from ccs_tpu_torch.models import chemistry as port_chemistry
 from ccs_tpu_torch.ops import tables as tt
+from ccs_tpu_torch.sim import simulator as port_simulator
 
 # The suite runs several pytest workers on a few cores; torch's intra-op
 # threads on these small tensors only contend with them.
@@ -20,13 +22,19 @@ PARAMS = {
     "default": default_params(),
     "builtin": load_model(make_subreads_header().chemistry()),
 }
+# the same two models as the port's own ArrowParams class
+PORT_PARAMS = {
+    "default": port_chemistry.default_params(),
+    "builtin": port_chemistry.load_model(
+        port_simulator.make_subreads_header().chemistry()),
+}
 
 
 @pytest.mark.parametrize("name", sorted(PARAMS))
 def test_params_to_torch_equals_params_to_device(name):
     params = PARAMS[name]
     ref = hmm_jax.params_to_device(params)
-    got = tt.params_to_torch(params, "cpu")
+    got = tt.params_to_torch(PORT_PARAMS[name], "cpu")
     assert set(ref) == set(tt.PARAM_KEYS)
     for k in tt.PARAM_KEYS:
         assert got[k].dtype == torch.float32
@@ -53,7 +61,7 @@ def test_position_tables_equal(name):
     ref = hmm_jax.position_tables(jnp.asarray(tpl), jnp.asarray(snr),
                                   hmm_jax.params_to_device(PARAMS[name]))
     got = tt.position_tables(torch.from_numpy(tpl), torch.from_numpy(snr),
-                             tt.params_to_torch(PARAMS[name], "cpu"))
+                             tt.params_to_torch(PORT_PARAMS[name], "cpu"))
     for r, g in zip(ref, got):
         np.testing.assert_array_equal(g.numpy(), np.asarray(r))
 
