@@ -87,8 +87,8 @@ def load_library() -> ctypes.CDLL:
         lib.ccs_hmm_score_dense.restype = i32
         lib.ccs_hmm_score_sparse.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
         lib.ccs_hmm_score_sparse.restype = i32
-        lib.ccs_hmm_launch_shape.argtypes = [
-            i32, i32, i32, ctypes.POINTER(i32), ctypes.POINTER(i32)]
+        lib.ccs_hmm_launch_shape.argtypes = [i32] * 3 + [
+            ctypes.POINTER(i32)] * 4
         lib.ccs_hmm_launch_shape.restype = i32
         lib.ccs_error_string.argtypes = [i32]
         lib.ccs_error_string.restype = ctypes.c_char_p
@@ -100,12 +100,16 @@ def load_library() -> ctypes.CDLL:
         return lib
 
 
-def launch_shape(T: int, C: int, R: int) -> tuple[int, int]:
-    """(reads per group, dynamic shared-memory bytes) of a scorer launch."""
+def launch_shape(T: int, C: int, R: int) -> tuple[int, int, int, int]:
+    """(reads per group, dynamic shared-memory bytes per CTA, threads per
+    CTA, CTAs that fit on an SM) of a scorer launch at these caps."""
     lib = load_library()
-    g, smem = ctypes.c_int(), ctypes.c_int()
-    lib.ccs_hmm_launch_shape(T, C, R, ctypes.byref(g), ctypes.byref(smem))
-    return g.value, smem.value
+    out = [ctypes.c_int() for _ in range(4)]
+    rc = lib.ccs_hmm_launch_shape(T, C, R, *(ctypes.byref(o) for o in out))
+    if rc != 0:
+        raise RuntimeError(f"ccs_hmm_launch_shape failed: CUDA error {rc} "
+                           f"({error_string(rc)})")
+    return tuple(o.value for o in out)
 
 
 def error_string(code: int) -> str:

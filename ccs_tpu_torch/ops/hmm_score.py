@@ -26,6 +26,8 @@ import torch
 from ccs_tpu_torch.ops import hmm_cols
 
 KINDS = 9
+# the kernels hold a column in registers, at most 4 cells per lane
+MAX_READ_CAP = 127
 
 
 def _absolute_ops(tpl, tlen, snr_bin, tables):
@@ -84,20 +86,6 @@ def score_sparse_plain(tpl, tlen, snr_bin, reads, rlens, cand, tables):
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def kernel_tables(tables: dict):
-    """The per-(snr bin, context) operator table the kernel reads,
-    ctx [n_snr, 16, 9] = (ME[4] | IE[4] | DP), and the pulse-width factor
-    table pw [n_snr, 8] = (pw_match[4] | pw_ins[4])."""
-    trans = tables["trans"]                                # [n, 16, 4]
-    cur = torch.arange(16, device=trans.device) % 4
-    onehot = torch.nn.functional.one_hot(cur, 4).to(trans.dtype)
-    me = trans[..., 0:1] * tables["emit_match"]
-    ie = trans[..., 1:2] * onehot[None] + trans[..., 2:3] * tables["emit_stick"]
-    ctx = torch.cat([me, ie, trans[..., 3:4]], dim=-1).contiguous()
-    pw = torch.cat([tables["pw_match"], tables["pw_ins"]], dim=-1).contiguous()
-    return ctx, pw
-
-
 def _launch(wrapper, fn_name, tpl, tlen, snr_bin, reads, rlens, cand, tables):
     from ccs_tpu_torch.ops import _build
     dev = tpl.device
@@ -112,7 +100,10 @@ def _launch(wrapper, fn_name, tpl, tlen, snr_bin, reads, rlens, cand, tables):
     _build.check_tensor("rlens", rlens, torch.int32, (B, C), dev)
     if cand is not None:
         _build.check_tensor("cand", cand, torch.bool, (B, T), dev)
-    ctx, pw = kernel_tables(tables)
+    if R > MAX_READ_CAP:
+        raise ValueError(f"reads of up to {R} bases: the CUDA scorer takes "
+                         f"a read cap of at most {MAX_READ_CAP}")
+    ctx, pw = tables["ctx"], tables["pw"]
     n_snr = ctx.shape[0]
     _build.check_tensor("ctx table", ctx, torch.float32, (n_snr, 16, 9), dev)
     _build.check_tensor("pw table", pw, torch.float32, (n_snr, 8), dev)

@@ -6,6 +6,8 @@ Counterpart of ``ccs_tpu.ops.hmm_jax``'s ``params_to_device``,
 context x 4), ``pw_match``/``pw_ins`` [8, 4] (snr bin x pulse-width bin),
 ``snr_edges`` [7], and ``clean_perr`` [8, 41] (snr bin x coverage), the
 calibrated error rate of an unpolished position in candidate-sparse mode.
+``ctx`` [8, 16, 9] and ``pw`` [8, 8] are the same parameters in the layout
+the CUDA scorer reads (``kernel_tables``), built once with the tables.
 """
 
 from __future__ import annotations
@@ -30,12 +32,29 @@ def load_clean_perr() -> np.ndarray:
     return np.load(CLEAN_PERR_PATH).astype(np.float32)
 
 
+def kernel_tables(tables: dict):
+    """The per-(snr bin, context) operator table the CUDA scorer reads,
+    ctx [n_snr, 16, 9] = (ME[4] | IE[4] | DP), and the pulse-width factor
+    table pw [n_snr, 8] = (pw_match[4] | pw_ins[4])."""
+    trans = tables["trans"]                                # [n, 16, 4]
+    cur = torch.arange(16, device=trans.device) % 4
+    onehot = F.one_hot(cur, 4).to(trans.dtype)
+    me = trans[..., 0:1] * tables["emit_match"]
+    ie = trans[..., 1:2] * onehot[None] + trans[..., 2:3] * tables["emit_stick"]
+    ctx = torch.cat([me, ie, trans[..., 3:4]], dim=-1).contiguous()
+    pw = torch.cat([tables["pw_match"], tables["pw_ins"]], dim=-1).contiguous()
+    return ctx, pw
+
+
 def tables_from_numpy(d: dict, device) -> dict[str, torch.Tensor]:
-    """float32 tensors on ``device`` from a dict of array-likes — the way
-    weights carried across from the JAX package's tables come in."""
-    return {k: torch.as_tensor(np.array(v, dtype=np.float32),
-                               device=device)
-            for k, v in d.items()}
+    """float32 tensors on ``device`` from a dict of array-likes that holds
+    the Arrow parameters — the way weights carried across from the JAX
+    package's tables come in. The scorer's ``ctx`` and ``pw`` tables are
+    built beside them, once."""
+    out = {k: torch.as_tensor(np.array(v, dtype=np.float32), device=device)
+           for k, v in d.items()}
+    out["ctx"], out["pw"] = kernel_tables(out)
+    return out
 
 
 def params_to_torch(params: ArrowParams, device) -> dict[str, torch.Tensor]:

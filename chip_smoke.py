@@ -11,10 +11,14 @@ no result line):
 3. each kernel against its plain PyTorch version on the card, with their
    median times: the two scorers at the production shapes (2048 windows x
    16 subreads, T=44, R=39, simulator reads, about a third of positions
-   flagged); the banded edit distance on every subread of the 400
-   simulated ZMWs against its ZMW's true insert (band 64, one launch),
-   also against the dense oracle, then driven once through its entry
-   point with its launches counted;
+   flagged), with the launch shape the library chose and the split of
+   their time between column sweeps and bridges; the scorers again at
+   the edge shapes of the lane-tiled sweep (1, 8 and 32 subreads, read
+   lengths around the 32-lane boundary, empty and dead reads, templates of
+   0, 1 and T bases, other caps, no and all candidates); the banded edit
+   distance on every subread of the 400 simulated ZMWs against its ZMW's
+   true insert (band 64, one launch), also against the dense oracle, then
+   driven once through its entry point with its launches counted;
 4. the CLI main path (``ccs_tpu_torch.cli.run``) on 400 simulated 2 kb
    10-pass ZMWs, then on a subset with --disable-heuristics; checks the
    report, the BAM, and that both kernels were launched; then times the
@@ -88,9 +92,14 @@ def phase_build():
         for line in _build.build_log.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 log(f"  ptxas: {line.strip()}")
-    g, smem = _build.launch_shape(T_CAP, C, R_CAP)
-    log(f"launch shape at T={T_CAP} C={C} R={R_CAP}: {g} reads per group, "
-        f"{smem} B dynamic shared memory per CTA")
+    log(f"launch shape at T={T_CAP} C={C} R={R_CAP}: {_shape_text()}")
+
+
+def _shape_text() -> str:
+    from ccs_tpu_torch.ops import _build
+    g, smem, threads, ctas = _build.launch_shape(T_CAP, C, R_CAP)
+    return (f"{threads} threads per CTA, {g} reads per group, {smem} B "
+            f"dynamic shared memory per CTA, {ctas} CTAs per SM")
 
 
 def window_batch(rng, params):
@@ -220,10 +229,10 @@ def phase_kernels(params, tables):
             raise RuntimeError(f"{name}: rerun is not bit-identical")
         ms = _median_ms(lambda: kern(*args), 11)
         plain_ms = _median_ms(lambda: plain(*args), 3)
-        ctx, pw = hmm_score.kernel_tables(tables)
         bound_ms, bound_by = _bound(
             _scorer_flops(arrs[1], arrs[4], arrs[5] if extra else None),
-            FP32_FLOP_S, _nbytes(*args[:-1], ctx, pw, lls_k, ll0_k))
+            FP32_FLOP_S, _nbytes(*args[:-1], tables["ctx"], tables["pw"],
+                                 lls_k, ll0_k))
         log(f"{name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
             f"(median, {W} windows x {C} subreads); bound {bound_ms:.4f} ms "
             f"by {bound_by}")
@@ -235,7 +244,88 @@ def phase_kernels(params, tables):
                      "launches": 0, "max_abs_err": max(d0, d),
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
+    _sweep_bridge_split(rows, tpl, tlen, snr_bin, reads, rlens, cand, tables)
     return rows
+
+
+def _sweep_bridge_split(rows, tpl, tlen, snr_bin, reads, rlens, cand, tables):
+    """How a scorer's time splits: a sparse launch with no candidate does
+    everything but the positions' bridges (staging, both column sweeps of
+    every subread, the 4 prepend bridges, the output row)."""
+    import torch
+    from ccs_tpu_torch.ops import hmm_score
+    none = torch.zeros_like(cand)
+    sweep_ms = _median_ms(lambda: hmm_score.score_sparse(
+        tpl, tlen, snr_bin, reads, rlens, none, tables), 11)
+    log(f"scorer without candidates (sweeps, staging, prepends): "
+        f"{sweep_ms:.3f} ms; bridges of the positions: dense "
+        f"{rows[0]['ms'] - sweep_ms:.3f} ms, sparse "
+        f"{rows[1]['ms'] - sweep_ms:.3f} ms")
+
+
+EDGE_CAPS = ((1, T_CAP, R_CAP), (8, T_CAP, R_CAP), (32, T_CAP, R_CAP),
+             (16, 30, 24), (4, 20, 70))     # (C, T, R)
+
+
+def phase_scorer_edges(params):
+    """Both scorers against their plain versions at the edge shapes, with
+    non-trivial pulse-width factors; same bars as at the production shape."""
+    import copy
+    import numpy as np
+    import torch
+    from ccs_tpu_torch.ops import hmm_score
+    from ccs_tpu_torch.ops.tables import params_to_torch
+    from ccs_tpu_torch.pipeline.polish_fused import mutation_valid_new
+    from ccs_tpu_torch.sim.edges import edge_batch
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(42)
+    params = copy.deepcopy(params)
+    params.pw_match = rng.uniform(0.6, 1.4, (8, 4)).astype(np.float32)
+    params.pw_ins = rng.uniform(0.5, 2.0, (8, 4)).astype(np.float32)
+    params.pw_match[:, 0] = params.pw_ins[:, 0] = 1.0
+    tables = params_to_torch(params, dev)
+    worst0 = worst = 0.0
+    n_cases = 0
+    for n_reads, t_cap, r_cap in EDGE_CAPS:
+        arrs = edge_batch(rng, n_reads, t_cap, r_cap)
+        args = tuple(torch.from_numpy(a).to(dev) for a in arrs)
+        tpl, tlen = args[:2]
+        valid = mutation_valid_new(tpl, tlen)
+        some = torch.from_numpy(rng.random(arrs[0].shape) < 0.4).to(dev)
+        for name, cand in (("dense", None), ("no candidate", some & False),
+                           ("all candidates", some | True),
+                           ("some candidates", some)):
+            if cand is None:
+                got = hmm_score.score_dense(*args, tables)
+                again = hmm_score.score_dense(*args, tables)
+                ref = hmm_score.score_dense_plain(*args, tables)
+            else:
+                got = hmm_score.score_sparse(*args, cand, tables)
+                again = hmm_score.score_sparse(*args, cand, tables)
+                ref = hmm_score.score_sparse_plain(*args, cand, tables)
+            torch.cuda.synchronize()
+            what = f"edge shapes C={n_reads} T={t_cap} R={r_cap}, {name}"
+            if not (torch.isfinite(got[0]).all()
+                    and torch.isfinite(got[1]).all()):
+                raise RuntimeError(f"{what}: non-finite kernel output")
+            if not (torch.equal(got[0], again[0])
+                    and torch.equal(got[1], again[1])):
+                raise RuntimeError(f"{what}: rerun is not bit-identical")
+            scored = hmm_score.scored_slots(tpl, tlen, cand)
+            if int((got[0][~scored] != 0).sum()):
+                raise RuntimeError(f"{what}: unscored slots are not 0")
+            d0 = float((got[1] - ref[1]).abs().max())
+            d = float(torch.where(valid & scored, (got[0] - ref[0]).abs(),
+                                  0.0).max())
+            if not (d0 <= LL0_TOL and d <= LLS_TOL):
+                raise RuntimeError(f"{what}: max |ll0 diff| {d0:.3g}, max "
+                                   f"|lls diff| {d:.3g} exceed the bars")
+            worst0, worst = max(worst0, d0), max(worst, d)
+            n_cases += 1
+    log(f"scorer edge shapes: {n_cases} cases over (C, T, R) in "
+        f"{list(EDGE_CAPS)}: max |ll0 kernel - plain| = {worst0:.3g} (bar "
+        f"{LL0_TOL}), max |lls kernel - plain| = {worst:.3g} (bar "
+        f"{LLS_TOL}), unscored slots 0, reruns bit-identical")
 
 
 def edit_pairs(sims):
@@ -482,6 +572,7 @@ def main() -> int:
     phase_build()
     rows = phase_kernels(default_params(),
                          params_to_torch(default_params(), "cuda"))
+    phase_scorer_edges(default_params())
     t0 = time.monotonic()
     sims = [simulate_zmw(hole=h, insert_len=E2E_INSERT, n_passes=E2E_PASSES,
                          snr=E2E_SNR) for h in range(E2E_ZMWS)]

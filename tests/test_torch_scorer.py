@@ -23,6 +23,7 @@ from ccs_tpu.sim.simulator import simulate_read
 from ccs_tpu_torch.models import chemistry as port_chemistry
 from ccs_tpu_torch.ops import _build, hmm_score
 from ccs_tpu_torch.ops.tables import params_to_torch
+from ccs_tpu_torch.sim.edges import edge_batch
 
 # The suite runs several pytest workers on a few cores; torch's intra-op
 # threads on these small tensors only contend with them.
@@ -249,3 +250,250 @@ def test_kernel_matches_plain(sparse):
     assert (got[0] - ref[0]).abs().max().item() < LLS_TOL
     # exact zeros agree: unscored slots are 0 in both
     assert torch.equal(got[0] == 0, ref[0] == 0)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's column sweep, emulated lane by lane
+# ---------------------------------------------------------------------------
+
+F32 = np.float32
+TINY32 = F32(1e-30)
+
+
+def _shfl_up(x, d):
+    """__shfl_up_sync over 32 lanes: lanes below d keep their own value."""
+    out = x.copy()
+    out[d:] = x[:-d]
+    return out
+
+
+def _dot4(rows, vec):
+    """dot4 of hmm_score.cu: four float32 products summed left to right."""
+    return ((rows[..., 0] * vec[0] + rows[..., 1] * vec[1])
+            + rows[..., 2] * vec[2]) + rows[..., 3] * vec[3]
+
+
+def emulate_sweep(ohm, ohi, me, ie, dp, tl, rl, bwd):
+    """sweep_chain of csrc/hmm_score.cu in numpy float32: one warp, lane l
+    holding the K consecutive cells K*l .. K*l+K-1 (K = 1, 2 or 4 by the
+    read's length), the neighbour by a shuffle, the insertion chain as the
+    in-lane composition plus a 5-step shuffle scan of the affine maps, the
+    lagged rescaling with the logarithms taken after the last step, the
+    backward chain as the forward chain of the reversed read. ``ohm``/``ohi`` [S, 4] are the staged emission rows (row
+    i for read base i, row 0 zero); ``me``/``ie`` [T+3, 4] and ``dp`` [T+3]
+    the identity-padded operator table at index j+1. Returns (stored
+    columns [ncol, rl+1], their log-scales and normalising factors, ll)."""
+    K = 1 if rl < 32 else 2 if rl < 64 else 4
+    lane = np.arange(32)
+    r = K * lane[:, None] + np.arange(K)[None, :]
+    emits = (r >= 1) & (r <= rl)
+    src = np.where(emits, rl - r + 1 if bwd else r, 0)
+    m = np.where(emits[..., None], ohm[src], F32(0))
+    n = np.where(emits[..., None], ohi[src], F32(0))
+    v = (r == 0).astype(F32)
+    stored = r <= rl
+    off = np.where(stored, rl - r if bwd else r, 0)
+    ncol = tl + 1 if bwd else tl + 2
+    out = np.zeros((ncol, rl + 1), F32)
+    ls_out = np.zeros(ncol, F32)
+    im_out = np.ones(ncol, F32)
+    out[tl if bwd else 0, off[stored]] = v[stored]
+    g = F32(1)
+    nsteps = tl if bwd else tl + 1
+    for t in range(nsteps):
+        jm = tl - 1 - t if bwd else t - 1
+        ji = jm if bwd else t
+        jout = jm if bwd else t + 1
+        mx = v.max()
+        vl = _shfl_up(v[:, K - 1], 1)
+        vl[0] = 0
+        y, a = np.empty_like(v), np.empty_like(v)
+        for k in range(K):
+            vp = v[:, k - 1] if k else vl
+            y[:, k] = g * (dp[jm + 1] * v[:, k]
+                           + _dot4(m[:, k], me[jm + 1]) * vp)
+            a[:, k] = _dot4(n[:, k], ie[ji + 1])
+        A, Y = a[:, 0].copy(), y[:, 0].copy()
+        for k in range(1, K):
+            Y = y[:, k] + a[:, k] * Y
+            A = A * a[:, k]
+        d = 1
+        while d < 32:
+            Au, Yu = _shfl_up(A, d), _shfl_up(Y, d)
+            Y = np.where(lane >= d, Y + A * Yu, Y)
+            A = np.where(lane >= d, A * Au, A)
+            d *= 2
+        w = _shfl_up(Y, 1)
+        w[0] = 0
+        for k in range(K):
+            w = y[:, k] + a[:, k] * w
+            v[:, k] = w
+        out[jout, off[stored]] = (y if bwd else v)[stored]
+        gn = F32(1) / max(g * mx, TINY32)
+        if bwd:                      # raw factors; the logs come after
+            ls_out[jout] = g
+            im_out[jout] = max(y.max(), TINY32)
+        else:
+            ls_out[t] = gn
+            im_out[t] = gn * g
+        g = gn
+    # log-scales from the raw factors: 32 columns at a time, one per lane,
+    # by a shuffle scan, the running sum carried across tiles
+    run = F32(0)
+    for base in range(0, nsteps, 32):
+        t = base + lane
+        k = np.where(t < nsteps, tl - 1 - t if bwd else t, 0)
+        x = -np.log(np.where(t < nsteps, ls_out[k], F32(1))).astype(F32)
+        d = 1
+        while d < 32:
+            x = np.where(lane >= d, x + _shfl_up(x, d), x)
+            d *= 2
+        x = x + run
+        ok = t < nsteps
+        if bwd:
+            c = im_out[k[ok]]
+            ls_out[k[ok]] = x[ok] + np.log(c)
+            im_out[k[ok]] = F32(1) / c
+        else:
+            ls_out[k[ok]] = x[ok]
+        last = 31 if bwd else min(31, tl - 1 - base)
+        if last >= 0:
+            run = x[last]
+    if bwd:
+        return out, ls_out, im_out, None
+    mf = max(v.max(), TINY32)
+    lsf = run + np.log(mf)
+    ls_out[tl + 1] = lsf
+    im_out[tl + 1] = F32(1) / mf
+    x = v[rl // K, rl % K]
+    return out, ls_out, im_out, np.log(max(x / mf, TINY32)) + lsf
+
+
+@pytest.mark.parametrize("tl", [1, 2, 44])
+@pytest.mark.parametrize("rl", [0, 1, 31, 32, 33, 39])
+def test_lane_sweep_emulation_matches_build_columns(rl, tl):
+    """The kernel's sweep (warp scan, lagged rescaling), emulated, against
+    the plain columns through the invariant log(x . cols[k]) + ls[k], for
+    x = each unit vector and x = ones, and against ll0.
+
+    Bars: ll0 within 2e-3 (the scorer's bar; the scan sums the insertion
+    chain in another order than the doubling solve, and the log-scales
+    accumulate in another order); normalised columns within 1e-5 of the
+    column maximum and their log-scales within 1e-4, far inside it."""
+    from ccs_tpu_torch.ops import hmm_cols
+    T, R = 44, 39
+    rng = np.random.default_rng(1000 * tl + rl)
+    tables = _port_tables(True)
+    snr = int(rng.integers(0, 8))
+    tpl = np.full((1, T), -1, np.int8)
+    tpl[0, :tl] = rng.integers(0, 4, tl)
+    reads = np.full((1, 1, R), -1, np.int8)
+    reads[0, 0, :rl] = rng.integers(0, 16, rl)
+    args = _torch((tpl, np.array([tl], np.int32), np.array([snr], np.int32),
+                   reads, np.array([[rl]], np.int32)))
+    ref = hmm_cols.build_columns(*args, tables)
+
+    ohm_t, ohi_t = hmm_cols._oh_pw(args[3], args[2], tables)
+    ohm = np.concatenate([np.zeros((1, 4), F32), ohm_t[0, 0].numpy()])
+    ohi = np.concatenate([np.zeros((1, 4), F32), ohi_t[0, 0].numpy()])
+    me_t, ie_t, dp_t = hmm_cols._padded_tables(*args[:3], tables)
+    me = np.zeros((T + 3, 4), F32)
+    ie = np.zeros((T + 3, 4), F32)
+    dp = np.ones(T + 3, F32)
+    me[1:T + 1], ie[1:T + 1], dp[1:T + 1] = (me_t[0].numpy(), ie_t[0].numpy(),
+                                             dp_t[0].numpy())
+
+    cols, lsc, imc, ll = emulate_sweep(ohm, ohi, me, ie, dp, tl, rl, False)
+    betas, lsb, imb, _ = emulate_sweep(ohm, ohi, me, ie, dp, tl, rl, True)
+    assert abs(ll - float(ref.ll[0, 0])) < LL0_TOL
+    for got, im, ls, want, want_ls in (
+            (cols, imc, lsc, ref.cols[0, 0], ref.ls_col[0, 0]),
+            (betas, imb, lsb, ref.betas[0, 0], ref.ls_beta[0, 0])):
+        n = got.shape[0]
+        want = want.numpy()[:n, :rl + 1]
+        want_ls = want_ls.numpy()[:n]
+        # stored maxima stay far inside float32 (two per-column ratios)
+        assert got.max(axis=1).min() > 1e-12 and got.max() < 1e2
+        norm = got * im[:, None]
+        np.testing.assert_allclose(norm, want, atol=1e-5)
+        np.testing.assert_allclose(ls, want_ls, atol=1e-4)
+        # the invariant, for x = ones
+        np.testing.assert_allclose(np.log(norm.sum(axis=1)) + ls,
+                                   np.log(want.sum(axis=1)) + want_ls,
+                                   atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels at the shapes where a lane-tiled sweep can go wrong
+# (sim.edges.edge_batch: template lengths 0, 1, T/2, T with read lengths
+# 0, 1, 31, 32, 33, R, dead reads mixed in, one window with no live read)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cand_mode", ["dense", "none", "all", "some"])
+@pytest.mark.parametrize("C,T,R", [(1, 44, 39), (8, 44, 39), (32, 44, 39),
+                                   (16, 30, 24), (4, 20, 70)])
+def test_kernel_edge_shapes(C, T, R, cand_mode):
+    """Kernel against plain version within the scorer's bars, exact zeros
+    in unscored slots, and a bit-identical rerun (fixed-order sums, no
+    atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    arrs = edge_batch(rng, C, T, R)
+    args = _torch(arrs, "cuda")
+    tables = _port_tables(True, "cuda")
+    some = torch.from_numpy(rng.random(arrs[0].shape) < 0.4).cuda()
+    cand = {"dense": None, "none": some & False, "all": some | True,
+            "some": some}[cand_mode]
+    if cand is None:
+        got = hmm_score.score_dense(*args, tables)
+        again = hmm_score.score_dense(*args, tables)
+        ref = hmm_score.score_dense_plain(*args, tables)
+    else:
+        got = hmm_score.score_sparse(*args, cand, tables)
+        again = hmm_score.score_sparse(*args, cand, tables)
+        ref = hmm_score.score_sparse_plain(*args, cand, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    scored = hmm_score.scored_slots(args[0], args[1], cand)
+    assert not bool((got[0][~scored] != 0).any())
+    assert (got[1] - ref[1]).abs().max().item() < LL0_TOL
+    assert (got[0] - ref[0]).abs().max().item() < LLS_TOL
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_reads_beyond_its_cap():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    arrs = edge_batch(np.random.default_rng(0), 2, 10,
+                      hmm_score.MAX_READ_CAP + 1)
+    with pytest.raises(ValueError, match="read cap"):
+        hmm_score.score_dense(*_torch(arrs, "cuda"),
+                              _port_tables(False, "cuda"))
+
+
+def test_kernel_tables_are_built_once_with_the_tables():
+    """The scorer's ctx/pw tables come with the tables (not per launch) and
+    hold, per (snr bin, context), what position_tables gives a position in
+    that context: match emissions | insertion emissions | deletion."""
+    from ccs_tpu_torch.ops.tables import position_tables
+    tables = _port_tables(True)
+    ctx, pw = tables["ctx"], tables["pw"]
+    assert ctx.shape == (8, 16, 9) and pw.shape == (8, 8)
+    assert ctx.is_contiguous() and pw.is_contiguous()
+    prev, cur = np.divmod(np.arange(16), 4)
+    tpl = torch.from_numpy(np.stack([prev, cur], axis=1).astype(np.int8))
+    for snr in range(8):
+        me, ie, dp = position_tables(tpl, torch.full((16,), snr), tables)
+        want = torch.cat([me[:, 1], ie[:, 1], dp[:, 1:2]], dim=-1)
+        assert torch.equal(ctx[snr], want)
+    assert torch.equal(pw[:, :4], tables["pw_match"])
+    assert torch.equal(pw[:, 4:], tables["pw_ins"])
+    arrs, _ = simulate_batch(np.random.default_rng(4), _params(False), 2, 2,
+                             10, 12, tl_range=(4, 8))
+    # the plain version does not need them
+    bare = {k: v for k, v in tables.items() if k not in ("ctx", "pw")}
+    got = hmm_score.score_dense_plain(*_torch(arrs), bare)
+    want = hmm_score.score_dense_plain(*_torch(arrs), tables)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
