@@ -8,12 +8,20 @@ cells ``k = j - i + band``. The distance is read at
 ``k_end = tlen - rlen + band`` and is ``BIG`` where ``|tlen - rlen| >
 band``; a value ``>= BIG / 2`` means the alignment left the band. It equals
 the dense Needleman-Wunsch distance whenever the optimal path's ``|j - i|``
-stays within ``band``. A pad code (< 0) matches nothing; cells with ``j``
-outside ``[0, tlen]`` are ``BIG``.
+stays within ``band``. Bases are codes 0..3; every other code, the pad -1
+among them, matches nothing, on either side; cells with ``j`` outside
+``[0, tlen]`` are ``BIG``. (The counterpart lets two equal codes above 3
+match. The encoding makes none, and the CUDA kernel keeps two bits of a
+base, so here such a code is one more pad, in the kernel and in the plain
+version alike.)
 
 On a CUDA tensor ``edit_distance_banded`` launches the hand-written Hopper
-kernel in ``csrc/edit_banded.cu`` (or raises); on a CPU tensor it runs the
-plain PyTorch version ``edit_distance_banded_plain``.
+kernel in ``csrc/edit_banded.cu`` (or raises): one thread per pair, the row
+of the band as two bit masks of +1/-1 differences in registers (Myers'
+bit-vector step in Hyyro's diagonal-band form), the template as bit planes,
+so a row is word-wide logic and one add with carry. On a CPU tensor it runs
+the plain PyTorch version ``edit_distance_banded_plain``, the same
+recurrence cell by cell.
 ``edit_distance_banded.launches`` counts kernel launches. Like its
 counterpart it has no call site in the pipeline: the subread-to-draft
 alignments that drafting needs (with their paths) run in the host C++
@@ -59,7 +67,7 @@ def edit_distance_banded_plain(tpl, tlen, reads, rlens, band: int = 64):
         rbase = reads[:, i - 1:i]
         j = i + k - W
         in_tpl = (j >= 0) & (j <= tl)
-        match = (tseg == rbase) & (tseg >= 0)
+        match = (tseg == rbase) & (tseg >= 0) & (tseg <= 3)
         diag = E + (~match).to(torch.int32)
         up = F.pad(E[:, 1:], (0, 1), value=_BIG_I) + 1      # E[i-1][k+1]
         u = torch.where(in_tpl, torch.minimum(diag, up), big)
@@ -108,8 +116,8 @@ def _launch(tpl, tlen, reads, rlens, band: int):
 def edit_distance_banded(tpl, tlen, reads, rlens, band: int = 64):
     """Banded global edit distance for B (read, template) pairs.
 
-    ``tpl [B, TMAX]`` int8 (-1 pad), ``tlen [B]`` int32, ``reads [B, RMAX]``
-    int8 (-1 pad), ``rlens [B]`` int32, all on one device -> ``dist [B]``
+    ``tpl [B, TMAX]`` int8 (bases 0..3, -1 pad), ``tlen [B]`` int32,
+    ``reads [B, RMAX]`` int8 (likewise), ``rlens [B]`` int32, all on one device -> ``dist [B]``
     float32 (see the module docstring). Kernel on CUDA tensors, plain
     version on CPU tensors."""
     if tpl.device.type == "cpu":

@@ -17,8 +17,9 @@ no result line):
    lengths around the 32-lane boundary, empty and dead reads, templates of
    0, 1 and T bases, other caps, no and all candidates); the banded edit
    distance on every subread of the 400 simulated ZMWs against its ZMW's
-   true insert (band 64, one launch), also against the dense oracle, then
-   driven once through its entry point with its launches counted;
+   true insert (band 64, one launch), also against the dense oracle, timed
+   at that size and with the pairs tiled 8 times, then driven once through
+   its entry point with its launches counted;
 4. the CLI main path (``ccs_tpu_torch.cli.run``) on 400 simulated 2 kb
    10-pass ZMWs, then on a subset with --disable-heuristics; checks the
    report, the BAM, and that both kernels were launched; then times the
@@ -31,7 +32,9 @@ last line is {"ok": true, "device": {...}}.
 work on this run's inputs: the larger of bytes moved (every input and
 output tensor once) over the memory rate and operations over the peak rate
 of their type outside the tensor cores. The peaks are NVIDIA's published
-H100 SXM figures at the full 700 W power limit.
+H100 SXM figures at the full 700 W power limit. The edit distance's rows
+are a serial recurrence, so its bound has a third term, the longest pair's
+dependent instructions at one a cycle of the SM clock the card reports.
 """
 
 from __future__ import annotations
@@ -50,7 +53,7 @@ E2E_ZMWS, E2E_INSERT, E2E_PASSES, E2E_SNR = 400, 2000, 10, 9.0
 DENSE_SUBSET = 24
 ENGINE_ZMWS = 16
 LL0_TOL, LLS_TOL, QV_TOL = 2e-3, 5e-3, 1e-3
-EDIT_BAND, EDIT_ORACLE_PAIRS = 64, 8
+EDIT_BAND, EDIT_ORACLE_PAIRS, EDIT_TILE = 64, 8, 8
 # H100 SXM peaks: HBM3 bytes/s; float32 FLOP/s outside the tensor cores
 # (128 lanes x 2 per FMA per SM); int32 op/s (64 lanes per SM, no FMA: a
 # quarter of the float32 figure)
@@ -58,7 +61,18 @@ HBM_BYTES_S, FP32_FLOP_S, INT32_OP_S = 3.35e12, 67e12, 16.75e12
 # float32 operations per cell of the scorer's recurrences as hmm_score.cu
 # writes them: a column step (forward or backward) and a three-operator
 # bridge step; integer operations per cell of the edit-distance recurrence
+# taken cell by cell
 SWEEP_FLOPS, BRIDGE_FLOPS, EDIT_OPS = 21, 59, 8
+# The cheapest formulation known of that recurrence is a bit-vector row
+# (Myers 1999, Hyyro 2003): a row of a pair is ceil(2*band/32) 32-bit words
+# of state, and per word 12 integer operations: Eq from two-bit template
+# planes (two three-input logic operations and a funnel shift: 3), and one
+# each for Xv, Eq & Pv, the add with carry, D0, Ph, Mh, the shift of Xv, Pv
+# and Mv (9). What a row does once, whatever its words (the read base's
+# masks, the count of D0's bit 0), is left out of the bound. Of these a
+# row's dependent chain is the carry through every word and four more:
+# Eq & Pv, D0, Ph, Pv.
+EDIT_WORD_OPS, EDIT_CHAIN_OPS = 12, 4
 
 
 def log(msg: str) -> None:
@@ -153,10 +167,28 @@ def _median_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
-def _bound(ops: float, peak: float, nbytes: int) -> tuple[float, str]:
-    """(bound_ms, bound_by) from an operation count and the bytes moved."""
-    t_ops, t_bytes = ops / peak * 1e3, nbytes / HBM_BYTES_S * 1e3
-    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+def _back_to_back_ms(fn, launches: int) -> float:
+    """Mean time of a call in a run of calls queued back to back: the card
+    never waits for the host, so this is the kernel's own time."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def _bound(ops: float, peak: float, nbytes: int,
+           serial_ms: float = 0.0) -> tuple[float, str]:
+    """(bound_ms, bound_by) from an operation count, the bytes moved and,
+    where the work is a serial chain, that chain's least time."""
+    terms = {"operations": ops / peak * 1e3,
+             "bytes": nbytes / HBM_BYTES_S * 1e3, "serial depth": serial_ms}
+    by = max(terms, key=terms.get)
+    return terms[by], by
 
 
 def _nbytes(*tensors) -> int:
@@ -361,10 +393,32 @@ def _edit_cells(tlen, rlens, band: int) -> float:
     return float(cells)
 
 
+def _edit_rows(tlen, rlens, band: int):
+    """What the bit-vector kernel's threads do for these pairs: (rows of the
+    pairs in band by their lengths, the longest of them, the share of
+    lane-rows idle when 32 consecutive pairs share a warp that runs to its
+    longest in-band read)."""
+    import numpy as np
+    rows = np.where(np.abs(tlen.astype(np.int64) - rlens) <= band, rlens, 0)
+    rows = np.concatenate([rows, np.zeros(-len(rows) % 32, rows.dtype)])
+    warp_rows = rows.reshape(-1, 32).max(axis=1).sum()
+    idle = 1.0 - rows.sum() / max(32 * warp_rows, 1)
+    return int(rows.sum()), int(rows.max()), float(idle)
+
+
+def _sm_clock_hz() -> float:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(smi.stdout.strip().splitlines()[0]) * 1e6
+
+
 def phase_edit_kernel(sims):
     """The banded edit-distance kernel against its plain version and the
-    dense oracle at the 400-ZMW 2 kb size, then driven once through its
-    entry point with its launches counted; returns its row."""
+    dense oracle at the 400-ZMW 2 kb size, timed there and with the pairs
+    tiled 8 times, then driven once through its entry point with its
+    launches counted; returns its row."""
     import numpy as np
     import torch
     from ccs_tpu_torch.ops import align_banded
@@ -417,15 +471,62 @@ def phase_edit_kernel(sims):
                 torch.tensor([4, 0], dtype=torch.int32, device=dev), band=16)
     if not (float(edge[0]) >= BIG / 2 and float(edge[1]) == 12.0):
         raise RuntimeError(f"edit_distance_banded: edge cases give {edge}")
+    # a code outside 0..3, whatever its two low bits, matches nothing
+    odd = tuple(a[:64].clone() for a in args)
+    rng = np.random.default_rng(0)
+    for side, n in ((odd[0], tpl.shape[1]), (odd[2], reads.shape[1])):
+        at_ = torch.from_numpy(rng.integers(0, n, (64, 40))).to(dev)
+        code = rng.integers(4, 256, (64, 40)).astype(np.uint8).view(np.int8)
+        side.scatter_(1, at_, torch.from_numpy(code).to(dev))
+    if not torch.equal(
+            clip(kern(*odd, band=EDIT_BAND)),
+            clip(align_banded.edit_distance_banded_plain(*odd,
+                                                         band=EDIT_BAND))):
+        raise RuntimeError("edit_distance_banded: codes outside the bases "
+                           "give another distance than the plain version")
 
     ms = _median_ms(lambda: kern(*args, band=EDIT_BAND), 11)
     plain_ms = _median_ms(lambda: align_banded.edit_distance_banded_plain(
         *args, band=EDIT_BAND), 3)
-    bound_ms, bound_by = _bound(
-        EDIT_OPS * _edit_cells(tlen, rlens, EDIT_BAND), INT32_OP_S,
-        _nbytes(*args, got))
+    cells = _edit_cells(tlen, rlens, EDIT_BAND)
+    rows, longest, idle = _edit_rows(tlen, rlens, EDIT_BAND)
+    words, clock = max(1, -(-2 * EDIT_BAND // 32)), _sm_clock_hz()
+    chain = words + EDIT_CHAIN_OPS
+    serial_ms = longest * chain / clock * 1e3
+    bound_ms, bound_by = _bound(EDIT_WORD_OPS * rows * words, INT32_OP_S,
+                                _nbytes(*args, got), serial_ms)
     log(f"edit_distance_banded: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-        f"(median, {len(tlen)} pairs); bound {bound_ms:.4f} ms by {bound_by}")
+        f"(median, {len(tlen)} pairs = {len(tlen) / ms * 1e3:.4g} pairs/s); "
+        f"bound {bound_ms:.4f} ms by {bound_by}")
+    log(f"edit_distance_banded: bound terms: {rows} rows x {words} words x "
+        f"{EDIT_WORD_OPS} operations = "
+        f"{EDIT_WORD_OPS * rows * words / INT32_OP_S * 1e3:.4f} ms; bytes "
+        f"{_nbytes(*args, got) / HBM_BYTES_S * 1e3:.4f} ms; serial depth "
+        f"{longest} rows x {chain} instructions at "
+        f"{clock / 1e6:.0f} MHz = {serial_ms:.4f} ms; the same {cells:.0f} "
+        f"cells taken one by one ({EDIT_OPS} operations each) would cost "
+        f"{EDIT_OPS * cells / INT32_OP_S * 1e3:.4f} ms; idle lane-rows "
+        f"(warps of 32 consecutive pairs) {idle:.4f}")
+    if ms < bound_ms:
+        raise RuntimeError("edit_distance_banded ran under its bound: the "
+                           "bound is wrong")
+
+    # the filled-card regime: the same pairs 8 times over, kernel only
+    many = tuple(a.repeat((EDIT_TILE,) + (1,) * (a.dim() - 1)) for a in args)
+    got_many = kern(*many, band=EDIT_BAND)
+    if not torch.equal(got_many, got.repeat(EDIT_TILE)):
+        raise RuntimeError("edit_distance_banded: the tiled pairs differ")
+    ms_many = _median_ms(lambda: kern(*many, band=EDIT_BAND), 11)
+    log(f"edit_distance_banded: {len(tlen) * EDIT_TILE} pairs (the same, "
+        f"tiled {EDIT_TILE}x) {ms_many:.3f} ms = "
+        f"{len(tlen) * EDIT_TILE / ms_many * 1e3:.4g} pairs/s, "
+        f"{ms_many / ms:.2f}x the time of {len(tlen)}")
+    b2b = _back_to_back_ms(lambda: kern(*args, band=EDIT_BAND), 200)
+    b2b_many = _back_to_back_ms(lambda: kern(*many, band=EDIT_BAND), 200)
+    log(f"edit_distance_banded: 200 launches back to back (the wrapper's "
+        f"host time hidden): {b2b:.4f} ms each at {len(tlen)} pairs = "
+        f"{b2b * 1e-3 * clock / longest:.1f} cycles a row of the longest "
+        f"read, {b2b_many:.4f} ms each at {len(tlen) * EDIT_TILE}")
 
     # this slice's path: the entry point, once, at this size
     kern.launches = 0
