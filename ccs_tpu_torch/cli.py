@@ -5,9 +5,10 @@ a torch device: ``python -m ccs_tpu_torch <in.subreads.bam>
 <out.{bam,fastq.gz,consensusreadset.xml}>``. ``build_parser``,
 ``config_from_args``, ``iter_zmws``, ``result_to_record``, ``fail_record``
 and ``run`` are copies of the JAX package's, which cannot be imported
-without JAX. Options whose device path is not ported yet
-(``--tpu-dc-polish``, ``--tpu-num-hosts`` > 1, ``--tpu-profile-dir``)
-raise rather than run without them.
+without JAX. ``--tpu-profile-dir`` traces the run with ``torch.profiler``
+(host ops, and the card's kernels on CUDA) into a Chrome trace. The one
+option whose path is not ported yet, ``--tpu-num-hosts`` > 1, raises
+rather than run without it.
 """
 
 from __future__ import annotations
@@ -101,10 +102,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tpu-stats-delta", type=str, default=None,
                    help=argparse.SUPPRESS)  # internal: multihost child dump
     p.add_argument("--tpu-profile-dir", type=str, default=None,
-                   help="device trace directory (not ported yet)")
+                   help="write a torch.profiler Chrome trace of the run "
+                        "(host ops and device kernels) into this directory")
     p.add_argument("--tpu-dc-polish", action="store_true",
-                   help="learned low-QV window refinement (not ported "
-                        "yet)")
+                   help="Revio-style learned refinement of low-QV windows "
+                        "(revio.md:29-53); model from dc_model.npz in "
+                        "$SMRT_CHEMISTRY_BUNDLE_DIR, else the built-in one")
     p.add_argument("--tpu-dc-qv-thresh", type=float, default=25.0,
                    help="mean-QV threshold under which a window counts as "
                         "low-quality for --tpu-dc-polish (default 25)")
@@ -264,12 +267,35 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _reject_unported(args: argparse.Namespace) -> None:
-    for flag, on in (("--tpu-num-hosts > 1", args.tpu_num_hosts > 1),
-                     ("--tpu-profile-dir", args.tpu_profile_dir is not None),
-                     ("--tpu-dc-polish", args.tpu_dc_polish)):
-        if on:
-            raise NotImplementedError(
-                f"{flag} is not ported to ccs_tpu_torch yet")
+    if args.tpu_num_hosts > 1:
+        raise NotImplementedError(
+            "--tpu-num-hosts > 1 is not ported to ccs_tpu_torch yet")
+
+
+def _start_profiler(device: torch.device):
+    """A started torch.profiler over host ops (and CUDA kernels on a CUDA
+    device), or None when it cannot start: profiling is best-effort."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    try:
+        prof = profile(activities=acts)
+        prof.start()
+    except Exception as exc:  # noqa: BLE001 — profiling is best-effort
+        logger.warning("torch.profiler unavailable: %s", exc)
+        return None
+    return prof
+
+
+def _stop_profiler(prof, out_dir: str) -> None:
+    import time
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, time.strftime("ccs_tpu_torch_%Y%m%d_%H%M%S")
+                        + f"_{os.getpid()}.trace.json")
+    prof.export_chrome_trace(path)
+    logger.info("device trace written to %s", path)
 
 
 def run(argv: Optional[list[str]] = None, device=None) -> int:
@@ -443,14 +469,24 @@ def run(argv: Optional[list[str]] = None, device=None) -> int:
     if ckpt is not None and ckpt.resume_hole is not None:
         zmw_stream = (z for z in zmw_stream if not ckpt.should_skip(z.hole))
     from ccs_tpu_torch.pipeline.orchestrator import run_pipeline
-    run_pipeline(engine, zmw_stream, emit,
-                 batch_size=cfg.batch_size, num_threads=cfg.num_threads,
-                 input_buffer=cfg.input_buffer)
+    prof = _start_profiler(device) if cfg.tpu_profile_dir else None
+    try:
+        run_pipeline(engine, zmw_stream, emit,
+                     batch_size=cfg.batch_size, num_threads=cfg.num_threads,
+                     input_buffer=cfg.input_buffer)
+    finally:
+        if prof is not None:
+            _stop_profiler(prof, cfg.tpu_profile_dir)
     reader.close()
     logger.info(
         "wall split: prepare %.3f thread-s, device %.3f s, busy %.3f s, "
         "finalize %.3f s", engine.t_prepare, engine.t_device, engine.t_busy,
         engine.t_finalize)
+    if cfg.tpu_dc_polish:
+        logger.info("DC refinement: %d of %d windows processed, %d "
+                    "corrected, in %d ZMWs", engine.dc_stats[1],
+                    engine.dc_stats[0], engine.dc_stats[2],
+                    engine.dc_stats[3])
 
     # --- outputs ---
     if ckpt is not None:

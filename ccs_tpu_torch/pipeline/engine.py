@@ -6,6 +6,10 @@ windows across the batch are flattened into fixed-shape chunks from the
 closed (cfg.tpu_window_buckets x cfg.tpu_coverage_buckets) grid, polished on
 the device, and scattered back per ZMW for stitching.
 
+With ``--tpu-dc-polish`` each chunk's polish is followed by the learned
+refinement (``models.dc_polisher.refine_chunk``) on the same device
+tensors; its QVs for the rq stream come back with the chunk.
+
 The device step is synchronous here (the polish loop's host condition
 waits for the device every iteration), so chunks are submitted and
 collected one after another on the calling thread: ``t_busy`` and
@@ -28,7 +32,7 @@ from ccs_tpu_torch.pipeline.zmw import (ConsensusResult, ZmwInput,
                                         ZmwWorkItem, finalize_zmw)
 from ccs_tpu_torch.statuses import ZmwStatus
 from ccs_tpu_torch.ops.tables import params_to_torch
-from ccs_tpu_torch.parallel.step import make_polish_step
+from ccs_tpu_torch.parallel.step import make_polish_step, to_device
 from ccs_tpu_torch.pipeline.prepare import _load_control, prepare_many
 
 logger = logging.getLogger("ccs_tpu")
@@ -40,9 +44,6 @@ class CcsEngine:
     def __init__(self, cfg: Optional[CcsConfig],
                  params: Optional[ArrowParams], device):
         self.cfg = (cfg or CcsConfig()).resolve_mode_all()
-        if self.cfg.tpu_dc_polish:
-            raise NotImplementedError(
-                "--tpu-dc-polish is not ported to ccs_tpu_torch yet")
         if (self.cfg.tpu_mesh_shape is not None
                 and int(np.prod(self.cfg.tpu_mesh_shape)) > 1):
             raise NotImplementedError(
@@ -62,6 +63,12 @@ class CcsEngine:
         # --disable-heuristics / tandem-repeat ZMWs
         self._polish_step = _mk(sparse=True)
         self._polish_step_dense = _mk(sparse=False)
+        self._dc_refine = None
+        # [windows refined, processed, corrected, ZMWs with a processed
+        # window] of the --tpu-dc-polish stage
+        self.dc_stats = np.zeros(4, np.int64)
+        if self.cfg.tpu_dc_polish:
+            self._dc_refine = self._load_dc_refine()
         self.control = _load_control(self.cfg)
         self.polish_stats = np.zeros(3, np.int64)
         self._t_lock = threading.Lock()
@@ -75,6 +82,32 @@ class CcsEngine:
             c for c in sorted(self.cfg.tpu_coverage_buckets) if c <= cap)
         if not self.c_buckets or self.c_buckets[-1] < cap:
             self.c_buckets = self.c_buckets + (cap,)
+
+    def _load_dc_refine(self):
+        """The learned refinement step: dc_model.npz in
+        $SMRT_CHEMISTRY_BUNDLE_DIR, else the built-in model."""
+        import functools
+        import os
+        from ccs_tpu_torch.models.dc_polisher import (DcModel, builtin_model,
+                                                      refine_chunk)
+        bundle = os.environ.get("SMRT_CHEMISTRY_BUNDLE_DIR")
+        dc_path = bundle and os.path.join(bundle, "dc_model.npz")
+        model = (DcModel.load(dc_path)
+                 if dc_path and os.path.exists(dc_path)
+                 else builtin_model())
+        if model is None:
+            # a user asking for the refinement stage must not silently get
+            # unrefined output
+            raise RuntimeError(
+                "--tpu-dc-polish requested but no model is available: "
+                "no built-in models/data/dc_v0.npz and no dc_model.npz "
+                "in SMRT_CHEMISTRY_BUNDLE_DIR")
+        logger.info("DC window refinement enabled (ctx=%d, conf=%.1f)",
+                    model.ctx, model.conf)
+        return functools.partial(
+            refine_chunk, model.module(self.device), model.ctx, self.tables,
+            qv_thresh=self.cfg.tpu_dc_qv_thresh, conf_thresh=model.conf,
+            allow_sub=bool(model.sub_ok))
 
     def process_batch(self, zmws: Sequence[ZmwInput]) -> list[ConsensusResult]:
         """Process a batch of ZMWs end to end. Order-preserving."""
@@ -145,6 +178,9 @@ class CcsEngine:
                 "qv": np.zeros((n, t_cap), np.float32),
                 "conv": np.ones(n, bool),
             }
+            if self._dc_refine is not None:
+                stage[id(it)].update(qv_rq=np.zeros((n, t_cap), np.float32),
+                                     dc_proc=np.zeros(n, bool))
 
         for (cb, exhaustive), rows in sorted(by_cb.items(),
                                              key=lambda kv: kv[0]):
@@ -162,11 +198,15 @@ class CcsEngine:
             try:
                 it.result = finalize_zmw(
                     it, st["tpl"], st["tlen"], st["cs"], st["ce"],
-                    st["qv"], st["conv"], self.cfg)
+                    st["qv"], st["conv"], self.cfg,
+                    qv_rq=st.get("qv_rq"))
             except Exception:  # noqa: BLE001
                 logger.exception("finalize failed for ZMW %s", it.zmw.hole)
                 it.result.status = ZmwStatus.EXCEPTION_THROWN
         self.t_finalize += time.monotonic() - t0
+        if self._dc_refine is not None:
+            self.dc_stats[3] += sum(bool(stage[id(it)]["dc_proc"].any())
+                                    for it in live)
 
     def _submit_chunk(self, chunk, c_pad: int, exhaustive: bool = False):
         """Build the padded bucket arrays and run the polish step; returns
@@ -216,22 +256,39 @@ class CcsEngine:
 
         step = self._polish_step_dense if exhaustive else self._polish_step
         t0 = time.monotonic()
+        # the polish step and the refinement share the device copies
+        snr_bin, reads, rlens = (to_device(a, self.device)
+                                 for a in (snr_bin, reads, rlens))
         state, qv, stats = step(
             tpl, tlen, cs, ce, snr_bin, reads, rlens, is_first, priority)
-        return chunk, state, qv, stats, t0
+        dc = ()
+        if self._dc_refine is not None:
+            # Revio-shaped learned refinement of low-QV windows
+            # (revio.md:29-53); qv_rq carries the model's QVs for the rq
+            # stream, qv the Arrow re-scores of the refined sequence
+            ntpl, nlen, ncs, nce, qv, qv_rq, proc = self._dc_refine(
+                state, qv, reads, rlens, snr_bin)
+            corrected = (ntpl != state.tpl).any(-1) | (nlen != state.tlen)
+            state = state._replace(tpl=ntpl, tlen=nlen,
+                                   core_start=ncs, core_end=nce)
+            dc = (qv_rq, proc, corrected)
+        return chunk, state, qv, stats, dc, t0
 
     def _collect_chunk(self, handle, stage: dict) -> None:
-        chunk, state, qv, stats, t0 = handle
+        chunk, state, qv, stats, dc, t0 = handle
         # one device -> host copy of everything the host needs
-        s, out_tpl, out_tlen, out_cs, out_ce, out_qv, nonconv = (
-            t.cpu().numpy() for t in (stats, state.tpl, state.tlen,
-                                      state.core_start, state.core_end, qv,
-                                      state.active))
+        pulls = [t.cpu().numpy() for t in (stats, state.tpl, state.tlen,
+                                           state.core_start, state.core_end,
+                                           qv, state.active) + dc]
+        s, out_tpl, out_tlen, out_cs, out_ce, out_qv, nonconv = pulls[:7]
         dt = time.monotonic() - t0
         with self._t_lock:
             self.t_device += dt
             self.t_busy += dt
             self.polish_stats += s  # [n_converged, total_iters, yield_bases]
+        if dc:
+            out_qv_rq, proc, corrected = pulls[7:]
+            self.dc_stats[:3] += (len(chunk), proc.sum(), corrected.sum())
 
         by_item: dict[int, list[int]] = {}
         for i, (it, _w, _nc) in enumerate(chunk):
@@ -246,3 +303,6 @@ class CcsEngine:
             st["ce"][ws] = out_ce[rows]
             st["qv"][ws] = out_qv[rows]
             st["conv"][ws] = ~nonconv[rows]
+            if dc:
+                st["qv_rq"][ws] = out_qv_rq[rows]
+                st["dc_proc"][ws] = proc[rows]

@@ -53,6 +53,9 @@ E2E_ZMWS, E2E_INSERT, E2E_PASSES, E2E_SNR = 400, 2000, 10, 9.0
 DENSE_SUBSET = 24
 ENGINE_ZMWS = 16
 LL0_TOL, LLS_TOL, QV_TOL = 2e-3, 5e-3, 1e-3
+# the DC stage: a finite correction threshold for the edit-and-rescore path
+# (the shipped model's is inf), and the GPU vs CPU bar on rq
+DC_CONF, DC_RQ_TOL = 2.0, 1e-4
 EDIT_BAND, EDIT_ORACLE_PAIRS, EDIT_TILE = 64, 8, 8
 # H100 SXM peaks: HBM3 bytes/s; float32 FLOP/s outside the tensor cores
 # (128 lanes x 2 per FMA per SM); int32 op/s (64 lanes per SM, no FMA: a
@@ -277,7 +280,7 @@ def phase_kernels(params, tables):
                      "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None})
     _sweep_bridge_split(rows, tpl, tlen, snr_bin, reads, rlens, cand, tables)
-    return rows
+    return rows, arrs
 
 
 def _sweep_bridge_split(rows, tpl, tlen, snr_bin, reads, rlens, cand, tables):
@@ -545,14 +548,18 @@ def phase_edit_kernel(sims):
             "library_ms": None}
 
 
-class _WallSplit(logging.Handler):
-    """Keeps the arguments of the CLI's last 'wall split' log record."""
+class _LogArgs(logging.Handler):
+    """Keeps the arguments of the CLI's last 'wall split' and 'DC
+    refinement' log records."""
 
-    args = None
+    def __init__(self):
+        super().__init__(level=logging.INFO)
+        self.args = {}
 
     def emit(self, record):
-        if record.getMessage().startswith("wall split"):
-            self.args = record.args
+        for key in ("wall split", "DC refinement"):
+            if record.msg.startswith(key):
+                self.args[key] = record.args
 
 
 def _read_report(path: str) -> dict:
@@ -574,7 +581,7 @@ def phase_main_path(sims, workdir):
     sub_bam = os.path.join(workdir, "subset.subreads.bam")
     write_subreads_bam(in_bam, sims)
     write_subreads_bam(sub_bam, sims[:DENSE_SUBSET])
-    cap = _WallSplit(level=logging.INFO)
+    cap = _LogArgs()
     logging.getLogger("ccs_tpu").addHandler(cap)
 
     # the main path's run: counters from 0, then default + dense runs
@@ -586,7 +593,7 @@ def phase_main_path(sims, workdir):
     dt = time.monotonic() - t0
     if rc != 0:
         raise RuntimeError(f"cli.run returned {rc}")
-    split = cap.args
+    split = cap.args["wall split"]
     rc = cli.run([sub_bam, os.path.join(workdir, "dense.bam"),
                   "--disable-heuristics", "--log-level", "INFO"])
     if rc != 0:
@@ -600,7 +607,7 @@ def phase_main_path(sims, workdir):
     dt_warm = time.monotonic() - t0
     if rc != 0:
         raise RuntimeError(f"warm cli.run returned {rc}")
-    split_warm = cap.args
+    split_warm = cap.args["wall split"]
     logging.getLogger("ccs_tpu").removeHandler(cap)
 
     rep = _read_report(os.path.join(workdir, "out.ccs_report.txt"))
@@ -662,7 +669,313 @@ def phase_gpu_vs_cpu(sims, params):
         f"GPU {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s")
 
 
+def _bam_records(path: str) -> dict:
+    """name -> (sequence bytes, binned QV bytes, rq) of a BAM's records."""
+    import numpy as np
+    from ccs_tpu_torch.io.bam import BamReader
+    with BamReader(path) as r:
+        return {rec.name: (np.asarray(rec.seq).tobytes(),
+                           np.asarray(rec.qual).tobytes(),
+                           float(rec.tag("rq"))) for rec in r}
+
+
+class _BundleDir:
+    """$SMRT_CHEMISTRY_BUNDLE_DIR pointing at ``path`` while in the block."""
+
+    def __init__(self, path: str):
+        self.path = path
+
+    def __enter__(self):
+        self.old = os.environ.get("SMRT_CHEMISTRY_BUNDLE_DIR")
+        os.environ["SMRT_CHEMISTRY_BUNDLE_DIR"] = self.path
+
+    def __exit__(self, *exc):
+        if self.old is None:
+            del os.environ["SMRT_CHEMISTRY_BUNDLE_DIR"]
+        else:
+            os.environ["SMRT_CHEMISTRY_BUNDLE_DIR"] = self.old
+
+
+def finite_conf_bundle(workdir: str) -> str:
+    """A bundle directory holding only dc_model.npz: the shipped model with
+    its edits enabled (conf 2.0 in place of inf)."""
+    import dataclasses
+    from ccs_tpu_torch.models.dc_polisher import builtin_model
+    bundle = os.path.join(workdir, "bundle")
+    os.makedirs(bundle, exist_ok=True)
+    dataclasses.replace(builtin_model(), conf=DC_CONF).save(
+        os.path.join(bundle, "dc_model.npz"))
+    return bundle
+
+
+def _dc_cli_run(argv, what):
+    """One CLI run with the DC stage, counters from 0: (seconds, wall
+    split, DC counts, launches)."""
+    from ccs_tpu_torch import cli
+    from ccs_tpu_torch.ops import hmm_score
+    cap = _LogArgs()
+    logging.getLogger("ccs_tpu").addHandler(cap)
+    hmm_score.score_dense.launches = 0
+    hmm_score.score_sparse.launches = 0
+    try:
+        t0 = time.monotonic()
+        rc = cli.run(argv + ["--tpu-dc-polish", "--log-level", "INFO"])
+        dt = time.monotonic() - t0
+    finally:
+        logging.getLogger("ccs_tpu").removeHandler(cap)
+    launches = {"hmm_score_dense": hmm_score.score_dense.launches,
+                "hmm_score_sparse": hmm_score.score_sparse.launches}
+    if rc != 0:
+        raise RuntimeError(f"{what}: cli.run returned {rc}")
+    processed, windows, corrected, zmws = (int(v) for v in
+                                           cap.args["DC refinement"])
+    return dt, cap.args["wall split"], (processed, windows, corrected,
+                                        zmws), launches
+
+
+def _check_dc_against_plain(out, plain, what):
+    """Identical record names, sequences and binned QVs; returns the count
+    of records whose rq differs."""
+    got = _bam_records(out)
+    if got.keys() != plain.keys():
+        raise RuntimeError(f"{what}: other records than the plain run")
+    if any(got[k][:2] != plain[k][:2] for k in got):
+        raise RuntimeError(f"{what}: sequences or QVs differ from the plain "
+                           "run")
+    return sum(got[k][2] != plain[k][2] for k in got)
+
+
+def phase_dc_cli(workdir):
+    """(a) warm CLI runs with --tpu-dc-polish and the shipped model
+    (conf = inf: it never edits) against the plain warm run, at the default
+    threshold and at QV 40 (with --min-rq 0, so every ZMW keeps its record
+    whatever its recalibrated rq): identical sequences and QVs, rq changed
+    on as many ZMWs as hold a processed window; then the plain run once
+    more, for the spread. (b) The same input with the finite-conf model in
+    a bundle directory and every window with reads processed (threshold
+    93): the re-score launches the dense kernel."""
+    from ccs_tpu_torch import cli
+    in_bam = os.path.join(workdir, "in.subreads.bam")
+    plain = _bam_records(os.path.join(workdir, "warm.bam"))
+    for thresh, extra in (("25", []), ("40", ["--min-rq", "0"])):
+        out = os.path.join(workdir, f"dc{thresh}.bam")
+        dt, sp, (proc, wins, corr, zmws), launches = _dc_cli_run(
+            [in_bam, out, "--tpu-dc-qv-thresh", thresh] + extra,
+            f"--tpu-dc-polish at QV {thresh}")
+        rep = _read_report(os.path.join(workdir,
+                                        f"dc{thresh}.ccs_report.txt"))
+        n_in, n_pass = rep["ZMWs input"], rep["ZMWs pass filters"]
+        log(f"DC run (shipped dc_v0, threshold {thresh}, warm pool): {n_in} "
+            f"ZMWs in {dt:.3f} s = {n_in / dt:.2f} ZMW/s; wall split prepare "
+            f"{sp[0]:.3f} thread-s, device {sp[1]:.3f} s, busy {sp[2]:.3f} "
+            f"s, finalize {sp[3]:.3f} s")
+        log(f"DC run at QV {thresh}: {n_pass} SUCCESS; {proc} of {wins} "
+            f"windows processed ({proc / wins:.5f}), {corr} corrected, in "
+            f"{zmws} ZMWs; kernel launches {launches}")
+        if n_in != E2E_ZMWS or n_pass < 0.99 * n_in:
+            raise RuntimeError(f"DC run: {n_pass}/{n_in} SUCCESS")
+        changed = _check_dc_against_plain(out, plain, f"DC run at {thresh}")
+        log(f"DC run at QV {thresh}: sequences and QVs identical to the "
+            f"plain warm run; rq differs on {changed} ZMWs, {zmws} hold a "
+            f"processed window")
+        if changed != zmws or corr != 0 or (thresh == "40" and not proc):
+            raise RuntimeError("DC run: rq changed on another number of "
+                               "ZMWs than hold a processed window, an edit, "
+                               "or nothing processed at QV 40")
+    cap = _LogArgs()
+    logging.getLogger("ccs_tpu").addHandler(cap)
+    t0 = time.monotonic()
+    rc = cli.run([in_bam, os.path.join(workdir, "warm2.bam"), "--log-level",
+                  "INFO"])
+    dt = time.monotonic() - t0
+    logging.getLogger("ccs_tpu").removeHandler(cap)
+    if rc != 0:
+        raise RuntimeError(f"plain rerun: cli.run returned {rc}")
+    sp = cap.args["wall split"]
+    log(f"main path again (warm pool, after the DC runs): "
+        f"{E2E_ZMWS / dt:.2f} ZMW/s, device {sp[1]:.3f} s")
+
+    with _BundleDir(finite_conf_bundle(workdir)):
+        dt, sp, (proc, wins, corr, zmws), launches = _dc_cli_run(
+            [in_bam, os.path.join(workdir, "dc_edit.bam"),
+             "--tpu-dc-qv-thresh", "93"], "finite-conf DC run")
+    rep = _read_report(os.path.join(workdir, "dc_edit.ccs_report.txt"))
+    n_rec = len(_bam_records(os.path.join(workdir, "dc_edit.bam")))
+    log(f"DC run (conf {DC_CONF}, threshold 93): {dt:.3f} s = "
+        f"{E2E_ZMWS / dt:.2f} ZMW/s, device {sp[1]:.3f} s; {proc} of {wins} "
+        f"windows processed, {corr} corrected, in {zmws} ZMWs; "
+        f"{rep['ZMWs pass filters']} SUCCESS, {n_rec} BAM records; kernel "
+        f"launches {launches}")
+    if n_rec != rep["ZMWs pass filters"]:
+        raise RuntimeError("finite-conf DC run: records and report differ")
+    if corr <= 0 or launches["hmm_score_dense"] <= 0:
+        raise RuntimeError("finite-conf DC run: no correction, or the "
+                           "re-score did not launch the dense kernel")
+
+
+def phase_dc_gpu_vs_cpu(sims, params, workdir):
+    """(c) the DC engine (finite-conf model, every window processed) on
+    the GPU against the CPU on the 16 ZMWs of phase_gpu_vs_cpu."""
+    import numpy as np
+    from ccs_tpu_torch.config import CcsConfig
+    from ccs_tpu_torch.pipeline.engine import CcsEngine
+    zmws = [_zin(z) for z in sims[:ENGINE_ZMWS]]
+    cfg = CcsConfig(tpu_window_buckets=(256,), tpu_dc_polish=True,
+                    tpu_dc_qv_thresh=93.0)
+    with _BundleDir(finite_conf_bundle(workdir)):
+        eng_g, eng_c = (CcsEngine(cfg, params, d) for d in ("cuda", "cpu"))
+    t0 = time.monotonic()
+    res_g = eng_g.process_batch(zmws)
+    t1 = time.monotonic()
+    res_c = eng_c.process_batch(zmws)
+    t2 = time.monotonic()
+    worst = worst_rq = 0.0
+    for a, b in zip(res_g, res_c):
+        if a.status != b.status:
+            raise RuntimeError(f"DC hole {a.hole}: {a.status} vs {b.status}")
+        if (a.seq is None) != (b.seq is None) or (
+                a.seq is not None and not np.array_equal(a.seq, b.seq)):
+            raise RuntimeError(f"DC hole {a.hole}: sequences differ")
+        if a.qv is not None:
+            worst = max(worst, float(np.abs(a.qv - b.qv).max()))
+            worst_rq = max(worst_rq, abs(a.rq - b.rq))
+    if worst > QV_TOL or worst_rq > DC_RQ_TOL:
+        raise RuntimeError(f"DC engine: QVs differ by {worst}, rq by "
+                           f"{worst_rq}")
+    if not np.array_equal(eng_g.dc_stats, eng_c.dc_stats) or \
+            eng_g.dc_stats[2] <= 0:
+        raise RuntimeError(f"DC counts GPU {eng_g.dc_stats} CPU "
+                           f"{eng_c.dc_stats}")
+    log(f"DC engine GPU == CPU on {len(zmws)} ZMWs (conf {DC_CONF}, "
+        f"threshold 93): statuses and sequences identical, max |QV diff| "
+        f"{worst:.3g} (bar {QV_TOL}), max |rq diff| {worst_rq:.3g} (bar "
+        f"{DC_RQ_TOL}); [windows, processed, corrected, ZMWs] "
+        f"{eng_g.dc_stats.tolist()} on both; GPU {t1 - t0:.1f} s, CPU "
+        f"{t2 - t1:.1f} s")
+
+
+def phase_dc_refine(arrs, params):
+    """(d) refine_chunk alone on a polished 2048 x 16 chunk: the shipped
+    model (no edit, no re-score) and the finite-conf model with every
+    window processed (edits, one dense re-score); CUDA-event medians."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from ccs_tpu_torch.models.dc_polisher import builtin_model, refine_chunk
+    from ccs_tpu_torch.ops import hmm_score
+    from ccs_tpu_torch.ops.tables import params_to_torch
+    from ccs_tpu_torch.parallel.step import make_polish_step
+    dev = torch.device("cuda")
+    tables = params_to_torch(params, dev)
+    tpl, tlen, snr_bin, reads, rlens, cand = (
+        torch.from_numpy(a).to(dev) for a in arrs)
+    state, qv, _stats = make_polish_step(tables, dev, compact=True,
+                                         sparse=True)(
+        tpl, tlen, torch.zeros_like(tlen), tlen.clone(), snr_bin, reads,
+        rlens, torch.zeros_like(tlen, dtype=torch.bool), cand.float())
+    shipped = builtin_model()
+    edits = dataclasses.replace(shipped, conf=DC_CONF)
+    rows = []
+    for name, model, thresh in (("shipped dc_v0", shipped, 25.0),
+                                (f"conf {DC_CONF}, threshold 93", edits,
+                                 93.0)):
+        net = model.module(dev)
+
+        def call():
+            return refine_chunk(net, model.ctx, tables, state, qv, reads,
+                                rlens, snr_bin, qv_thresh=thresh,
+                                conf_thresh=model.conf)
+        hmm_score.score_dense.launches = 0
+        out = call()
+        torch.cuda.synchronize()
+        rescored = hmm_score.score_dense.launches
+        edited = int(((out[0] != state.tpl).any(-1)
+                      | (out[1] != state.tlen)).sum())
+        ms = _median_ms(call, 11)
+        rows.append(ms)
+        log(f"refine_chunk at {W} windows x {C} subreads ({name}): "
+            f"{ms:.3f} ms median; {int(out[6].sum())} windows processed, "
+            f"{edited} edited, dense re-score launches {rescored}")
+        if (rescored > 0) != bool(np.isfinite(model.conf)):
+            raise RuntimeError(f"refine_chunk ({name}): re-score launches "
+                               f"{rescored}")
+    log(f"refine_chunk: the re-score adds {rows[1] - rows[0]:.3f} ms to a "
+        f"{W}-window chunk")
+
+
+def phase_dc_train():
+    """(e) train() on the card at the JAX package's slow-test settings,
+    held to that test's contract on a fresh held-out batch."""
+    import numpy as np
+    import torch
+    from ccs_tpu_torch.models import dc_polisher as dc
+    from ccs_tpu_torch.models.chemistry import default_params
+    from ccs_tpu_torch.models.train_dc import mismatch_chemistry
+    stamps = []
+    true_chem, score_chem = mismatch_chemistry(), default_params()
+    t0 = time.monotonic()
+    model = dc.train(true_chem, score_chem, steps=400, n_windows=192,
+                     hidden=48, ctx=2, batches=4, seed=3, device="cuda",
+                     log=lambda m: stamps.append((time.monotonic(), m)))
+    wall = time.monotonic() - t0
+    steps = [(t, int(m.split()[3].rstrip(":"))) for t, m in stamps
+             if m.startswith("dc train step")]
+    (ta, sa), (tb, sb) = steps[0], steps[-1]
+    state, _qv, _cov, feats, labels, _w, truths = dc.make_training_batch(
+        192, true_chem, score_chem, np.random.default_rng(99), device="cuda")
+    base = dc.residual_errors(dc._numpy(state.tpl), dc._numpy(state.tlen),
+                              truths)
+    with torch.no_grad():
+        cls, _err = dc.dc_forward(model.module("cuda"), feats, model.ctx)
+    ntpl, nlen, _cs, _ce, _ap = dc.apply_corrections(
+        state.tpl, state.tlen, state.core_start, state.core_end, cls,
+        torch.ones(len(truths), dtype=torch.bool, device="cuda"),
+        conf_thresh=model.conf, allow_sub=bool(model.sub_ok))
+    refined = dc.residual_errors(dc._numpy(ntpl), dc._numpy(nlen), truths)
+    disc, mass = dc.err_head_quality(model, state, feats, labels)
+    log(f"DC train on the card (400 steps, 192 windows x 4 batches, hidden "
+        f"48, seed 3): {wall:.1f} s wall; steps {sa}-{sb} at "
+        f"{(sb - sa) / (tb - ta):.1f} steps/s; conf {model.conf}, sub_ok "
+        f"{model.sub_ok}; held-out errors {base} -> {refined}; error head "
+        f"discrimination {disc:.2f}x, mass ratio {mass:.3f}")
+    if np.isfinite(model.conf) and not refined < base:
+        raise RuntimeError("DC train: calibrated edits did not help")
+    if not np.isfinite(model.conf) and refined != base:
+        raise RuntimeError("DC train: gated-off edits changed templates")
+    if not (base > 0 and disc >= 5.0 and 0.3 <= mass <= 3.0):
+        raise RuntimeError("DC train: error head below the contract")
+
+
+def phase_profile(workdir):
+    """(f) a small CLI run with --tpu-profile-dir: the Chrome trace exists
+    and names the scorer kernel."""
+    import glob
+    from ccs_tpu_torch import cli
+    trace_dir = os.path.join(workdir, "trace")
+    sub_bam = os.path.join(workdir, "subset.subreads.bam")
+    t0 = time.monotonic()
+    if cli.run([sub_bam, os.path.join(workdir, "unprof.bam")]) != 0:
+        raise RuntimeError("unprofiled subset run failed")
+    t1 = time.monotonic()
+    rc = cli.run([sub_bam, os.path.join(workdir, "prof.bam"),
+                  "--tpu-profile-dir", trace_dir])
+    dt = time.monotonic() - t1
+    traces = glob.glob(os.path.join(trace_dir, "*.trace.json"))
+    if rc != 0 or len(traces) != 1:
+        raise RuntimeError(f"profiled run: rc {rc}, traces {traces}")
+    with open(traces[0]) as fh:
+        text = fh.read()
+    n_kern = text.count('"cat": "kernel"')
+    log(f"profiled CLI run on {DENSE_SUBSET} ZMWs: {dt:.2f} s (unprofiled "
+        f"{t1 - t0:.2f} s); trace "
+        f"{len(text) / 1e6:.1f} MB, {n_kern} kernel events, scorer kernel "
+        f"named: {'score_kernel' in text}")
+    if "score_kernel" not in text:
+        raise RuntimeError("the trace does not name the scorer kernel")
+
+
 def main() -> int:
+    t_start = time.monotonic()
     phase_environment()
     import numpy as np
     import torch
@@ -671,8 +984,8 @@ def main() -> int:
     from ccs_tpu_torch.ops.tables import params_to_torch
     from ccs_tpu_torch.pipeline.orchestrator import shutdown_pool
     phase_build()
-    rows = phase_kernels(default_params(),
-                         params_to_torch(default_params(), "cuda"))
+    rows, window_arrs = phase_kernels(
+        default_params(), params_to_torch(default_params(), "cuda"))
     phase_scorer_edges(default_params())
     t0 = time.monotonic()
     sims = [simulate_zmw(hole=h, insert_len=E2E_INSERT, n_passes=E2E_PASSES,
@@ -686,9 +999,15 @@ def main() -> int:
     try:
         with tempfile.TemporaryDirectory(dir=scratch) as workdir:
             launches = phase_main_path(sims, workdir)
-        # the CLI resolves the model from the BAM's chemistry; use the same
-        params = load_model(make_subreads_header().chemistry())
-        phase_gpu_vs_cpu(sims, params)
+            phase_dc_cli(workdir)
+            phase_profile(workdir)
+            # the CLI resolves the model from the BAM's chemistry; use the
+            # same
+            params = load_model(make_subreads_header().chemistry())
+            phase_gpu_vs_cpu(sims, params)
+            phase_dc_gpu_vs_cpu(sims, params, workdir)
+        phase_dc_refine(window_arrs, default_params())
+        phase_dc_train()
     finally:
         shutdown_pool()
     for row in rows:
@@ -700,6 +1019,7 @@ def main() -> int:
         raise RuntimeError(f"the port's run imported {foreign}")
     if not np.isfinite([r["ms"] for r in rows]).all():
         raise RuntimeError("kernel timing failed")
+    log(f"chip_smoke.py ran {time.monotonic() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -153,9 +153,7 @@ def test_cli_matches_jax_cli(skill_fixture, tmp_path):
         assert fj.read() == ft.read()
 
 
-@pytest.mark.parametrize("flag", [["--tpu-dc-polish"],
-                                  ["--tpu-num-hosts", "2"],
-                                  ["--tpu-profile-dir", "trace"]])
+@pytest.mark.parametrize("flag", [["--tpu-num-hosts", "2"]])
 def test_unported_options_raise(skill_fixture, tmp_path, flag):
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.run([skill_fixture, str(tmp_path / "o.bam"), *flag],
@@ -165,8 +163,6 @@ def test_unported_options_raise(skill_fixture, tmp_path, flag):
 def test_engine_rejects_unported_config():
     with pytest.raises(NotImplementedError, match="not ported"):
         CcsEngine(CcsConfig(tpu_mesh_shape=(2,)), None, "cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        CcsEngine(CcsConfig(tpu_dc_polish=True), None, "cpu")
 
 
 def test_cli_without_cuda_raises(skill_fixture, tmp_path):
@@ -188,6 +184,9 @@ def test_port_imports_no_jax():
     out = _python(
         "import sys, numpy as np, torch\n"
         "import ccs_tpu_torch, ccs_tpu_torch.cli\n"
+        "import ccs_tpu_torch.models.dc_polisher, "
+        "ccs_tpu_torch.models.train_dc, ccs_tpu_torch.models.fit, "
+        "ccs_tpu_torch.models.fit_bundle\n"
         "from ccs_tpu_torch.models.chemistry import default_params\n"
         "from ccs_tpu_torch.ops.tables import params_to_torch\n"
         "from ccs_tpu_torch.ops.hmm_score import score_dense\n"

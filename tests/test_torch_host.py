@@ -327,10 +327,10 @@ def test_copy_equals_original(name, tmp_path):
 COPIED_MODULES = (
     "statuses", "config", "ops.dna", "ops.align", "ops.sdust", "io.bgzf",
     "io.bam", "io.pbi", "io.fastq", "io.datasetxml", "models.chemistry",
-    "native", "pipeline.qvbin", "pipeline.draft", "pipeline.windows",
-    "pipeline.adapters", "pipeline.heteroduplex", "pipeline.kinetics",
-    "pipeline.zmw", "pipeline.checkpoint", "report.stats", "report.metrics",
-    "sim.simulator")
+    "models.fit", "models.fit_bundle", "native", "pipeline.qvbin",
+    "pipeline.draft", "pipeline.windows", "pipeline.adapters",
+    "pipeline.heteroduplex", "pipeline.kinetics", "pipeline.zmw",
+    "pipeline.checkpoint", "report.stats", "report.metrics", "sim.simulator")
 
 
 @pytest.mark.parametrize("name", COPIED_MODULES)
