@@ -6,14 +6,16 @@ a torch device: ``python -m ccs_tpu_torch <in.subreads.bam>
 ``config_from_args``, ``iter_zmws``, ``result_to_record``, ``fail_record``
 and ``run`` are copies of the JAX package's, which cannot be imported
 without JAX. ``--tpu-profile-dir`` traces the run with ``torch.profiler``
-(host ops, and the card's kernels on CUDA) into a Chrome trace. The one
-option whose path is not ported yet, ``--tpu-num-hosts`` > 1, raises
-rather than run without it.
+(host ops, and the card's kernels on CUDA) into a Chrome trace. A run
+shards its windows over every visible CUDA device; ``--tpu-num-hosts N
+--tpu-host-id i`` runs one host's share of a multi-host run
+(``parallel.multihost``).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import logging
 import os
@@ -93,12 +95,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "defaults to controls.fasta in "
                         "$SMRT_CHEMISTRY_BUNDLE_DIR if present")
     p.add_argument("--tpu-num-hosts", type=int, default=1,
-                   help="multi-host scale-out; values > 1 are not ported "
-                        "to ccs_tpu_torch yet")
+                   help="multi-host scale-out: N hosts each polish chunk "
+                        "i+1/N over a shared filesystem; host 0 merges")
     p.add_argument("--tpu-host-id", type=int, default=0,
                    help="this host's rank in 0..N-1 (with --tpu-num-hosts)")
     p.add_argument("--tpu-coordinator", type=str, default=None,
-                   help="multi-host coordinator (not ported yet)")
+                   help="host:port of a torch.distributed (gloo) rendezvous "
+                        "for the cross-host counter all-reduce; optional")
     p.add_argument("--tpu-stats-delta", type=str, default=None,
                    help=argparse.SUPPRESS)  # internal: multihost child dump
     p.add_argument("--tpu-profile-dir", type=str, default=None,
@@ -255,21 +258,11 @@ def fail_record(res: ConsensusResult,
     return rec
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the CUDA device; raises when CUDA is absent."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "ccs_tpu_torch needs a CUDA device and torch.cuda.is_available() "
-            "is False; pass device='cpu' to run() to use the plain CPU path")
-    return torch.device("cuda")
-
-
-def _reject_unported(args: argparse.Namespace) -> None:
-    if args.tpu_num_hosts > 1:
-        raise NotImplementedError(
-            "--tpu-num-hosts > 1 is not ported to ccs_tpu_torch yet")
+def resolve_device(device=None) -> list[torch.device]:
+    """The devices of a run: ``device`` (one or a list) as given, else
+    every visible CUDA device; raises when CUDA is absent."""
+    from ccs_tpu_torch.parallel.mesh import make_zmw_mesh
+    return make_zmw_mesh(devices=device)
 
 
 def _start_profiler(device: torch.device):
@@ -299,9 +292,14 @@ def _stop_profiler(prof, out_dir: str) -> None:
 
 
 def run(argv: Optional[list[str]] = None, device=None) -> int:
+    """One CLI run. ``device``: a torch device or a list of them; None
+    means every visible CUDA device (raises without CUDA)."""
     args = build_parser().parse_args(argv)
-    _reject_unported(args)
-    device = resolve_device(device)
+    if args.tpu_num_hosts > 1 and args.tpu_stats_delta is None:
+        from ccs_tpu_torch.parallel.multihost import run_multihost
+        return run_multihost(args, list(argv or sys.argv[1:]),
+                             functools.partial(run, device=device))
+    devices = resolve_device(device)
     cfg = config_from_args(args)
     level = getattr(logging, cfg.log_level.upper(), logging.WARNING)
     log_kwargs = {"filename": cfg.log_file} if cfg.log_file \
@@ -370,8 +368,10 @@ def run(argv: Optional[list[str]] = None, device=None) -> int:
         logger.error("--chunk requires a .pbi index next to the input BAM")
         return 1
 
-    engine = CcsEngine(cfg, params, device)
+    engine = CcsEngine(cfg, params, devices)
     cfg = engine.cfg  # resolved (--all implications)
+    logger.info("Polishing on %d device(s): %s", engine.n_dev,
+                ", ".join(map(str, engine.devices)))
     stats = RunStats()
     # progress protocol is an INFO-level feature (reports-aux-files.md:175-177)
     progress = ProgressReporter(
@@ -469,7 +469,7 @@ def run(argv: Optional[list[str]] = None, device=None) -> int:
     if ckpt is not None and ckpt.resume_hole is not None:
         zmw_stream = (z for z in zmw_stream if not ckpt.should_skip(z.hole))
     from ccs_tpu_torch.pipeline.orchestrator import run_pipeline
-    prof = _start_profiler(device) if cfg.tpu_profile_dir else None
+    prof = _start_profiler(engine.device) if cfg.tpu_profile_dir else None
     try:
         run_pipeline(engine, zmw_stream, emit,
                      batch_size=cfg.batch_size, num_threads=cfg.num_threads,

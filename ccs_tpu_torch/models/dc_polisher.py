@@ -304,14 +304,14 @@ def make_training_batch(n_windows: int, params_gen, params_score,
                         r_cap: int = 39, snr_bin: int = 3,
                         per_read: bool = False, device=None):
     """Simulate windows with ``params_gen`` (the TRUE chemistry), polish
-    them on ``device`` (None: the CUDA device; raises without one) with
-    ``params_score`` (the assumed chemistry), and
+    them on ``device`` (None: the first CUDA device; raises without one)
+    with ``params_score`` (the assumed chemistry), and
     label each position of the POLISHED template with the correction class
     that moves it toward the truth. Draws from ``rng`` in the JAX package's
     order. Returns (state, qv, coverage, features, labels, weights,
     truths); state, qv and features are tensors on ``device``."""
     from ccs_tpu_torch.cli import resolve_device
-    device = resolve_device(device)
+    device = resolve_device(device)[0]
     W = n_windows
     # per-window coverage sampled across the production range so the model
     # never faces a coverage domain shift at inference
@@ -415,10 +415,10 @@ def train(params_gen, params_score, steps: int = 300, n_windows: int = 256,
           seed: int = 0, batches: int = 4, log=None,
           per_read: bool = False, device=None) -> DcModel:
     """Train the refinement model under chemistry mismatch on ``device``
-    (None: the CUDA device; raises without one). ``per_read`` appends the
-    pileup evidence channels (N_PILEUP_FEATS)."""
+    (None: the first CUDA device; raises without one). ``per_read``
+    appends the pileup evidence channels (N_PILEUP_FEATS)."""
     from ccs_tpu_torch.cli import resolve_device
-    device = resolve_device(device)
+    device = resolve_device(device)[0]
     rng = np.random.default_rng(seed)
     n_feats = N_BASE_FEATS + (N_PILEUP_FEATS if per_read else 0)
     model = init_model(rng, hidden=hidden, ctx=ctx, n_feats=n_feats)

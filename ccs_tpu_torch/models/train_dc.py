@@ -38,7 +38,7 @@ def main(out: str | None = None, device=None) -> int:
     import os
 
     from ccs_tpu_torch.cli import resolve_device
-    device = resolve_device(device)
+    device = resolve_device(device)[0]
     out = out or os.path.join(os.path.dirname(__file__), "data", "dc_v0.npz")
     log = lambda m: print(f"# {m}", file=sys.stderr, flush=True)  # noqa: E731
     true_chem = mismatch_chemistry()

@@ -25,6 +25,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 # what the last build printed (nvcc -Xptxas -v: registers, shared memory,
 # spills per kernel); None when the library was already built
@@ -115,6 +116,13 @@ def launch_shape(T: int, C: int, R: int) -> tuple[int, int, int, int]:
 def error_string(code: int) -> str:
     """The CUDA runtime's text for an error code a kernel entry returned."""
     return load_library().ccs_error_string(code).decode()
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches``. Shard threads launch at once, and
+    an unlocked ``+= 1`` can lose an increment."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check_tensor(name, t, dtype, shape, device) -> None:

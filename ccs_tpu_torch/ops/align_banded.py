@@ -109,7 +109,7 @@ def _launch(tpl, tlen, reads, rlens, band: int):
     if rc != 0:
         raise RuntimeError(f"ccs_edit_distance_banded failed: CUDA error {rc} "
                            f"({_build.error_string(rc)})")
-    edit_distance_banded.launches += 1
+    _build.count_launch(edit_distance_banded)
     return dist
 
 

@@ -126,7 +126,7 @@ def _launch(wrapper, fn_name, tpl, tlen, snr_bin, reads, rlens, cand, tables):
     if rc != 0:
         raise RuntimeError(f"{fn_name} failed: CUDA error {rc} "
                            f"({_build.error_string(rc)})")
-    wrapper.launches += 1
+    _build.count_launch(wrapper)
     return lls, ll0
 
 

@@ -1,30 +1,33 @@
 """Batch engine: concatenate windows from many ZMWs into one device polish.
 
-Counterpart of ``ccs_tpu.pipeline.engine.CcsEngine`` on one torch device.
-The host prepares ZMWs (filters/draft/windows, ``pipeline.prepare``);
-windows across the batch are flattened into fixed-shape chunks from the
-closed (cfg.tpu_window_buckets x cfg.tpu_coverage_buckets) grid, polished on
-the device, and scattered back per ZMW for stitching.
+Counterpart of ``ccs_tpu.pipeline.engine.CcsEngine`` over a list of torch
+devices (every visible CUDA device unless told otherwise). The host
+prepares ZMWs (filters/draft/windows, ``pipeline.prepare``); windows across
+the batch are flattened into fixed-shape chunks from the closed
+(cfg.tpu_window_buckets x cfg.tpu_coverage_buckets) grid, each chunk is
+sharded over the devices (``parallel.mesh.shard_fused_polish``), and the
+results scatter back per ZMW for stitching.
 
-With ``--tpu-dc-polish`` each chunk's polish is followed by the learned
+With ``--tpu-dc-polish`` each shard's polish is followed by the learned
 refinement (``models.dc_polisher.refine_chunk``) on the same device
 tensors; its QVs for the rq stream come back with the chunk.
 
 The device step is synchronous here (the polish loop's host condition
 waits for the device every iteration), so chunks are submitted and
-collected one after another on the calling thread: ``t_busy`` and
-``t_device`` both measure the wall time spent in the device step.
+collected one after another on the calling thread, and only the shards of
+a chunk run at once: ``t_busy`` and ``t_device`` both measure the wall time
+with at least one shard in flight.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import threading
 import time
 from typing import Optional, Sequence
 
 import numpy as np
-import torch
 
 from ccs_tpu_torch.config import CcsConfig
 from ccs_tpu_torch.models.chemistry import ArrowParams, default_params
@@ -32,43 +35,53 @@ from ccs_tpu_torch.pipeline.zmw import (ConsensusResult, ZmwInput,
                                         ZmwWorkItem, finalize_zmw)
 from ccs_tpu_torch.statuses import ZmwStatus
 from ccs_tpu_torch.ops.tables import params_to_torch
-from ccs_tpu_torch.parallel.step import make_polish_step, to_device
+from ccs_tpu_torch.parallel.mesh import make_zmw_mesh, shard_fused_polish
 from ccs_tpu_torch.pipeline.prepare import _load_control, prepare_many
 
 logger = logging.getLogger("ccs_tpu")
 
 
 class CcsEngine:
-    """CCS engine over one set of Arrow parameters on one torch device."""
+    """CCS engine over one set of Arrow parameters.
+
+    ``device``: a torch device or a list of them, windows shard over the
+    list; None means every visible CUDA device (raises without CUDA).
+    ``cfg.tpu_mesh_shape`` takes the first prod(shape) of them."""
 
     def __init__(self, cfg: Optional[CcsConfig],
-                 params: Optional[ArrowParams], device):
+                 params: Optional[ArrowParams], device=None):
         self.cfg = (cfg or CcsConfig()).resolve_mode_all()
-        if (self.cfg.tpu_mesh_shape is not None
-                and int(np.prod(self.cfg.tpu_mesh_shape)) > 1):
-            raise NotImplementedError(
-                "a --tpu-mesh-shape of more than one device is not ported "
-                "to ccs_tpu_torch yet")
-        self.device = torch.device(device)
+        devices = make_zmw_mesh(devices=device)
+        if self.cfg.tpu_mesh_shape is not None:
+            devices = devices[:int(np.prod(self.cfg.tpu_mesh_shape))]
+        self.devices = devices
+        self.n_dev = len(devices)
+        self.device = devices[0]
         self.params = params or default_params()
-        self.tables = params_to_torch(self.params, self.device)
-
-        def _mk(sparse):
-            return make_polish_step(
-                self.tables, self.device,
-                max_iters=self.cfg.max_polish_iterations,
-                thresh=self.cfg.tpu_polish_thresh,
-                compact=self.cfg.tpu_tail_bucket > 0, sparse=sparse)
-        # candidate-sparse step for default chunks; the dense step serves
-        # --disable-heuristics / tandem-repeat ZMWs
-        self._polish_step = _mk(sparse=True)
-        self._polish_step_dense = _mk(sparse=False)
+        # one table set per distinct device
+        tables = {d: params_to_torch(self.params, d)
+                  for d in dict.fromkeys(devices)}
+        self.tables_per_device = [tables[d] for d in devices]
+        self.tables = self.tables_per_device[0]
         self._dc_refine = None
+        refine = None
         # [windows refined, processed, corrected, ZMWs with a processed
         # window] of the --tpu-dc-polish stage
         self.dc_stats = np.zeros(4, np.int64)
         if self.cfg.tpu_dc_polish:
-            self._dc_refine = self._load_dc_refine()
+            self._dc_refine, refine = self._load_dc_refine()
+
+        def _mk(sparse):
+            return shard_fused_polish(
+                devices, self.tables_per_device,
+                max_iters=self.cfg.max_polish_iterations,
+                thresh=self.cfg.tpu_polish_thresh,
+                compact=self.cfg.tpu_tail_bucket > 0, sparse=sparse,
+                refine=refine)
+        # candidate-sparse step for default chunks; the dense step serves
+        # --disable-heuristics / tandem-repeat ZMWs
+        self._polish_step = _mk(sparse=True)
+        self._polish_step_dense = _mk(sparse=False)
         self.control = _load_control(self.cfg)
         self.polish_stats = np.zeros(3, np.int64)
         self._t_lock = threading.Lock()
@@ -76,7 +89,9 @@ class CcsEngine:
         self.t_device = 0.0    # seconds in the device step
         self.t_finalize = 0.0  # seconds in host stitch/finalize
         self.t_busy = 0.0      # seconds with a chunk on the device
-        self.w_buckets = tuple(sorted(self.cfg.tpu_window_buckets))
+        # window counts rounded up to a multiple of the device count
+        self.w_buckets = tuple(sorted(-(-w // self.n_dev) * self.n_dev
+                                      for w in self.cfg.tpu_window_buckets))
         cap = self.cfg.tpu_window_coverage_cap
         self.c_buckets = tuple(
             c for c in sorted(self.cfg.tpu_coverage_buckets) if c <= cap)
@@ -84,9 +99,10 @@ class CcsEngine:
             self.c_buckets = self.c_buckets + (cap,)
 
     def _load_dc_refine(self):
-        """The learned refinement step: dc_model.npz in
-        $SMRT_CHEMISTRY_BUNDLE_DIR, else the built-in model."""
-        import functools
+        """The learned refinement step from dc_model.npz in
+        $SMRT_CHEMISTRY_BUNDLE_DIR, else the built-in model: (refine_chunk
+        with the stage's thresholds bound, and that with each device's
+        model and tables bound as well)."""
         import os
         from ccs_tpu_torch.models.dc_polisher import (DcModel, builtin_model,
                                                       refine_chunk)
@@ -104,10 +120,12 @@ class CcsEngine:
                 "in SMRT_CHEMISTRY_BUNDLE_DIR")
         logger.info("DC window refinement enabled (ctx=%d, conf=%.1f)",
                     model.ctx, model.conf)
-        return functools.partial(
-            refine_chunk, model.module(self.device), model.ctx, self.tables,
-            qv_thresh=self.cfg.tpu_dc_qv_thresh, conf_thresh=model.conf,
-            allow_sub=bool(model.sub_ok))
+        refine = functools.partial(
+            refine_chunk, qv_thresh=self.cfg.tpu_dc_qv_thresh,
+            conf_thresh=model.conf, allow_sub=bool(model.sub_ok))
+        nets = {d: model.module(d) for d in dict.fromkeys(self.devices)}
+        return refine, [functools.partial(refine, nets[d], model.ctx, t)
+                        for d, t in zip(self.devices, self.tables_per_device)]
 
     def process_batch(self, zmws: Sequence[ZmwInput]) -> list[ConsensusResult]:
         """Process a batch of ZMWs end to end. Order-preserving."""
@@ -205,8 +223,11 @@ class CcsEngine:
                 it.result.status = ZmwStatus.EXCEPTION_THROWN
         self.t_finalize += time.monotonic() - t0
         if self._dc_refine is not None:
-            self.dc_stats[3] += sum(bool(stage[id(it)]["dc_proc"].any())
-                                    for it in live)
+            # a ZMW is one item, or two under --by-strand / --hd-finder
+            holes = {it.zmw.hole for it in live
+                     if stage[id(it)]["dc_proc"].any()}
+            with self._t_lock:
+                self.dc_stats[3] += len(holes)
 
     def _submit_chunk(self, chunk, c_pad: int, exhaustive: bool = False):
         """Build the padded bucket arrays and run the polish step; returns
@@ -256,23 +277,13 @@ class CcsEngine:
 
         step = self._polish_step_dense if exhaustive else self._polish_step
         t0 = time.monotonic()
-        # the polish step and the refinement share the device copies
-        snr_bin, reads, rlens = (to_device(a, self.device)
-                                 for a in (snr_bin, reads, rlens))
-        state, qv, stats = step(
+        # with --tpu-dc-polish the step also runs the Revio-shaped learned
+        # refinement of low-QV windows (revio.md:29-53) and returns
+        # (qv_rq: the model's QVs for the rq stream, processed, corrected);
+        # qv is then the Arrow re-score of the refined sequence
+        state, qv, stats, *dc = step(
             tpl, tlen, cs, ce, snr_bin, reads, rlens, is_first, priority)
-        dc = ()
-        if self._dc_refine is not None:
-            # Revio-shaped learned refinement of low-QV windows
-            # (revio.md:29-53); qv_rq carries the model's QVs for the rq
-            # stream, qv the Arrow re-scores of the refined sequence
-            ntpl, nlen, ncs, nce, qv, qv_rq, proc = self._dc_refine(
-                state, qv, reads, rlens, snr_bin)
-            corrected = (ntpl != state.tpl).any(-1) | (nlen != state.tlen)
-            state = state._replace(tpl=ntpl, tlen=nlen,
-                                   core_start=ncs, core_end=nce)
-            dc = (qv_rq, proc, corrected)
-        return chunk, state, qv, stats, dc, t0
+        return chunk, state, qv, stats, dc[0] if dc else (), t0
 
     def _collect_chunk(self, handle, stage: dict) -> None:
         chunk, state, qv, stats, dc, t0 = handle
@@ -282,13 +293,14 @@ class CcsEngine:
                                            qv, state.active) + dc]
         s, out_tpl, out_tlen, out_cs, out_ce, out_qv, nonconv = pulls[:7]
         dt = time.monotonic() - t0
+        if dc:
+            out_qv_rq, proc, corrected = pulls[7:]
         with self._t_lock:
             self.t_device += dt
             self.t_busy += dt
             self.polish_stats += s  # [n_converged, total_iters, yield_bases]
-        if dc:
-            out_qv_rq, proc, corrected = pulls[7:]
-            self.dc_stats[:3] += (len(chunk), proc.sum(), corrected.sum())
+            if dc:
+                self.dc_stats[:3] += (len(chunk), proc.sum(), corrected.sum())
 
         by_item: dict[int, list[int]] = {}
         for i, (it, _w, _nc) in enumerate(chunk):

@@ -24,7 +24,15 @@ no result line):
    10-pass ZMWs, then on a subset with --disable-heuristics; checks the
    report, the BAM, and that both kernels were launched; then times the
    400-ZMW run once more with the prepare pool warm;
-5. the GPU engine against the CPU engine (plain versions) on 16 ZMWs.
+5. the GPU engine against the CPU engine (plain versions) on 16 ZMWs;
+6. the DC stage, (a)-(f) (see their functions);
+7. the parallel layer: (g) the engine over [cuda:0, cuda:0] (two shards on
+   one card, each on its own thread and stream) on the 400 ZMWs and on the
+   subset with --disable-heuristics, against the single-device engine,
+   with both scorers' launches counted over the shard threads (and over
+   [cuda:0, cuda:1] where a second card is visible); (h) two CLI host
+   processes (--tpu-num-hosts 2, a gloo coordinator on localhost) on the
+   400-ZMW BAM, merged by host 0, against the single CLI run of phase 4.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -42,6 +50,8 @@ from __future__ import annotations
 import json
 import logging
 import os
+import re
+import socket
 import subprocess
 import sys
 import tempfile
@@ -641,8 +651,27 @@ def _zin(z):
     return ZmwInput(hole=z.hole, movie="m_smoke", subreads=subs, snr=z.snr)
 
 
-def phase_gpu_vs_cpu(sims, params):
+def _same_results(got, ref, what) -> float:
+    """Statuses and sequences identical; returns the largest QV gap."""
     import numpy as np
+    if len(got) != len(ref):
+        raise RuntimeError(f"{what}: {len(got)} results, {len(ref)} expected")
+    worst = 0.0
+    for a, b in zip(got, ref):
+        if a.hole != b.hole or a.status != b.status:
+            raise RuntimeError(f"{what}: hole {a.hole} {a.status} vs hole "
+                               f"{b.hole} {b.status}")
+        if (a.seq is None) != (b.seq is None) or (
+                a.seq is not None and not np.array_equal(a.seq, b.seq)):
+            raise RuntimeError(f"{what}: hole {a.hole}: sequences differ")
+        if a.qv is not None:
+            worst = max(worst, float(np.abs(a.qv - b.qv).max()))
+    if worst > QV_TOL:
+        raise RuntimeError(f"{what}: QVs differ by {worst} > {QV_TOL}")
+    return worst
+
+
+def phase_gpu_vs_cpu(sims, params):
     from ccs_tpu_torch.config import CcsConfig
     from ccs_tpu_torch.pipeline.engine import CcsEngine
     zmws = [_zin(z) for z in sims[:ENGINE_ZMWS]]
@@ -653,17 +682,7 @@ def phase_gpu_vs_cpu(sims, params):
     t1 = time.monotonic()
     res_c = CcsEngine(cfg, params, "cpu").process_batch(zmws)
     t2 = time.monotonic()
-    worst = 0.0
-    for a, b in zip(res_g, res_c):
-        if a.status != b.status:
-            raise RuntimeError(f"hole {a.hole}: {a.status} vs {b.status}")
-        if (a.seq is None) != (b.seq is None) or (
-                a.seq is not None and not np.array_equal(a.seq, b.seq)):
-            raise RuntimeError(f"hole {a.hole}: sequences differ")
-        if a.qv is not None:
-            worst = max(worst, float(np.abs(a.qv - b.qv).max()))
-    if worst > QV_TOL:
-        raise RuntimeError(f"QVs differ by {worst} > {QV_TOL}")
+    worst = _same_results(res_g, res_c, "GPU engine against CPU engine")
     log(f"GPU engine == CPU engine on {len(zmws)} ZMWs: statuses and "
         f"sequences identical, max |QV diff| {worst:.3g} (bar {QV_TOL}); "
         f"GPU {t1 - t0:.1f} s, CPU {t2 - t1:.1f} s")
@@ -974,6 +993,186 @@ def phase_profile(workdir):
         raise RuntimeError("the trace does not name the scorer kernel")
 
 
+def _pipeline_run(zmws, cfg, params, devices):
+    """One engine over ``devices`` driven through the orchestrator (the
+    warm prepare pool): (engine, results in input order, wall seconds)."""
+    import torch
+    from ccs_tpu_torch.pipeline.engine import CcsEngine
+    from ccs_tpu_torch.pipeline.orchestrator import run_pipeline
+    eng = CcsEngine(cfg, params, devices)
+    results = []
+    t0 = time.monotonic()
+    run_pipeline(eng, iter(zmws), lambda res, _n: results.extend(res),
+                 batch_size=cfg.batch_size, num_threads=cfg.num_threads,
+                 input_buffer=cfg.input_buffer)
+    torch.cuda.synchronize()
+    return eng, results, time.monotonic() - t0
+
+
+def phase_sharded_engine(sims, params):
+    """(g) The engine over [cuda:0, cuda:0] against the single-device
+    engine, on the 400 ZMWs and on the --disable-heuristics subset; both
+    scorers' launches counted over the two shard threads."""
+    import numpy as np
+    import torch
+    from ccs_tpu_torch.config import CcsConfig
+    from ccs_tpu_torch.ops import hmm_score
+    zmws = [_zin(z) for z in sims]
+    default, dense = CcsConfig(), CcsConfig(disable_heuristics=True)
+    two = [torch.device("cuda", 0)] * 2
+    one = [torch.device("cuda", 0)]
+    # the parallel layer's run: counters from 0, the sharded default and
+    # dense runs, counters read
+    hmm_score.score_dense.launches = 0
+    hmm_score.score_sparse.launches = 0
+    eng_2, res_2, wall_2 = _pipeline_run(zmws, default, params, two)
+    eng_2d, res_2d, _ = _pipeline_run(zmws[:DENSE_SUBSET], dense, params,
+                                      two)
+    launches = {"hmm_score_dense": hmm_score.score_dense.launches,
+                "hmm_score_sparse": hmm_score.score_sparse.launches}
+    eng_1, res_1, wall_1 = _pipeline_run(zmws, default, params, one)
+    eng_1d, res_1d, _ = _pipeline_run(zmws[:DENSE_SUBSET], dense, params,
+                                      one)
+    worst = max(_same_results(res_2, res_1, "sharded engine"),
+                _same_results(res_2d, res_1d,
+                              "sharded engine, --disable-heuristics"))
+    for a, b, what in ((eng_2, eng_1, "default"), (eng_2d, eng_1d, "dense")):
+        if not np.array_equal(a.polish_stats, b.polish_stats):
+            raise RuntimeError(f"sharded engine ({what}): polish_stats "
+                               f"{a.polish_stats} vs {b.polish_stats}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise RuntimeError(f"{k} was not launched by the sharded engine")
+    # the same pair once more, the other way round, for the spread
+    _e, _r, wall_1b = _pipeline_run(zmws, default, params, one)
+    eng_2b, _r, wall_2b = _pipeline_run(zmws, default, params, two)
+    n_ok = sum(r.status.name == "SUCCESS" for r in res_2)
+    log(f"sharded engine [cuda:0, cuda:0] == single-device engine on "
+        f"{len(zmws)} ZMWs ({n_ok} SUCCESS) and {DENSE_SUBSET} with "
+        f"--disable-heuristics: statuses and sequences identical, max |QV "
+        f"diff| {worst:.3g} (bar {QV_TOL}), polish_stats equal "
+        f"{eng_2.polish_stats.tolist()}; kernel launches over both shard "
+        f"threads {launches}")
+    log(f"sharded engine: wall single {wall_1:.3f}, {wall_1b:.3f} s, two "
+        f"shards on one card {wall_2:.3f}, {wall_2b:.3f} s; device step "
+        f"single {eng_1.t_device:.3f} s, two shards {eng_2.t_device:.3f}, "
+        f"{eng_2b.t_device:.3f} s; {len(zmws) / wall_2:.2f} against "
+        f"{len(zmws) / wall_1:.2f} ZMW/s")
+    if torch.cuda.device_count() >= 2:
+        cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+        eng_c, res_c, wall_c = _pipeline_run(zmws, default, params, cards)
+        _same_results(res_c, res_1, "engine over two cards")
+        log(f"engine over [cuda:0, cuda:1]: wall {wall_c:.3f} s, device "
+            f"step {eng_c.t_device:.3f} s; scaling against one card "
+            f"{wall_1 / wall_c:.3f}x (wall), "
+            f"{eng_1.t_device / eng_c.t_device:.3f}x (device step)")
+    else:
+        log("engine over two cards: not measured "
+            f"({torch.cuda.device_count()} card visible)")
+    return launches
+
+
+# One host of phase (h): the CLI with --tpu-num-hosts on the card, then its
+# kernel launches; argv: host id, coordinator, input BAM, output BAM
+_HOST = r"""
+import logging, sys
+logging.basicConfig(level=logging.INFO, stream=sys.stderr,
+                    format="%(asctime)s %(levelname)s %(message)s")
+import torch.distributed as dist
+from ccs_tpu_torch import cli
+from ccs_tpu_torch.ops import hmm_score
+from ccs_tpu_torch.pipeline.orchestrator import shutdown_pool
+i, coord, bam, out = int(sys.argv[1]), sys.argv[2], sys.argv[3], sys.argv[4]
+try:
+    rc = cli.run([bam, out, '-j', '4', '--log-level', 'INFO',
+                  '--tpu-num-hosts', '2', '--tpu-host-id', str(i),
+                  '--tpu-coordinator', coord])
+finally:
+    shutdown_pool()
+print('LAUNCHES', hmm_score.score_sparse.launches,
+      hmm_score.score_dense.launches, flush=True)
+if dist.is_initialized():
+    dist.destroy_process_group()
+sys.exit(rc)
+"""
+
+
+def _bam_rows(path: str) -> list:
+    """(name, sequence, binned QVs, np, rq) of a BAM's records, in order."""
+    import numpy as np
+    from ccs_tpu_torch.io.bam import BamReader
+    with BamReader(path) as r:
+        return [(rec.name, np.asarray(rec.seq).tobytes(),
+                 np.asarray(rec.qual).tobytes(), int(rec.tag("np")),
+                 float(rec.tag("rq"))) for rec in r]
+
+
+def phase_two_hosts(workdir):
+    """(h) Two CLI host processes on the one card, joined by a gloo
+    process group on localhost, on the 400-ZMW BAM: host 0's merge equals
+    the single run of phase 4 record for record, with the same report,
+    and the all-reduce of the counters reads its totals."""
+    in_bam = os.path.join(workdir, "in.subreads.bam")
+    merged = os.path.join(workdir, "mh.bam")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{s.getsockname()[1]}"
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _HOST, str(i), coord, in_bam, merged],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT) for i in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.monotonic() - t0
+    for i, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise RuntimeError(f"host {i} exited {p.returncode}:\n"
+                               f"{err[-4000:]}")
+    single = _bam_rows(os.path.join(workdir, "out.bam"))
+    got = _bam_rows(merged)
+    n_diff = sum(a != b for a, b in zip(got, single))
+    with open(os.path.join(workdir, "out.ccs_report.txt")) as fh:
+        rep_single = fh.read()
+    with open(os.path.join(workdir, "mh.ccs_report.txt")) as fh:
+        rep_merged = fh.read()
+    bases = sum(len(r[1]) for r in single)
+    launches, totals = [], []
+    for out, err in outs:
+        m = re.search(r"LAUNCHES (\d+) (\d+)", out)
+        t = re.search(r"cluster totals via all_reduce: (\d+) ZMWs, (\d+) "
+                      r"bases", err)
+        if not (m and t and "gloo process group" in err):
+            raise RuntimeError(f"a host did not log its process group, its "
+                               f"totals or its launches:\n{err[-4000:]}")
+        launches.append((int(m.group(1)), int(m.group(2))))
+        totals.append((int(t.group(1)), int(t.group(2))))
+    left = [f for f in os.listdir(workdir) if ".host" in f]
+    log(f"two hosts on one card (gloo on {coord}): {len(got)} merged "
+        f"records, {n_diff} differ from the single run's {len(single)}; "
+        f"report equal: {rep_merged == rep_single}; all-reduce totals "
+        f"{totals} against the single run's ({E2E_ZMWS}, {bases}); sparse "
+        f"and dense launches per host {launches}; {wall:.3f} s wall for "
+        f"both processes (start-up, spawn of their prepare pools and the "
+        f"merge included)")
+    if len(got) != len(single) or n_diff or rep_merged != rep_single:
+        raise RuntimeError("two hosts: the merged records or report differ "
+                           "from the single run")
+    if any(t != (E2E_ZMWS, bases) for t in totals):
+        raise RuntimeError("two hosts: the all-reduce read other totals")
+    if any(sp <= 0 for sp, _d in launches) or left:
+        raise RuntimeError(f"two hosts: a host launched no sparse scorer, "
+                           f"or host files remain: {left}")
+
+
 def main() -> int:
     t_start = time.monotonic()
     phase_environment()
@@ -1006,6 +1205,8 @@ def main() -> int:
             params = load_model(make_subreads_header().chemistry())
             phase_gpu_vs_cpu(sims, params)
             phase_dc_gpu_vs_cpu(sims, params, workdir)
+            phase_sharded_engine(sims, params)
+            phase_two_hosts(workdir)
         phase_dc_refine(window_arrs, default_params())
         phase_dc_train()
     finally:

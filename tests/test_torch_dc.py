@@ -15,6 +15,7 @@ training step within 1e-5 of the largest magnitude; five Adam steps within
 import dataclasses
 import functools
 import glob
+import logging
 import os
 
 import jax
@@ -34,6 +35,7 @@ from ccs_tpu.pipeline import zmw as jax_zmw
 from ccs_tpu.pipeline.engine import CcsEngine as JaxEngine
 from ccs_tpu_torch import cli
 from ccs_tpu_torch.config import CcsConfig
+from ccs_tpu_torch.io.bam import BamReader
 from ccs_tpu_torch.models import chemistry as tchem
 from ccs_tpu_torch.models import dc_polisher as tdc
 from ccs_tpu_torch.models import fit as tfit
@@ -337,6 +339,54 @@ def test_dc_engine_changes_only_rq_of_processed_zmws(engine_runs):
     assert n_proc_zmws == 2
     assert stats[3] == n_proc_zmws and stats[2] == 0
     assert 0 < stats[1] < stats[0]
+
+
+class _LogArgs(logging.Handler):
+    """Keeps the arguments of the last "DC refinement" log record."""
+
+    def __init__(self):
+        super().__init__(level=logging.INFO)
+        self.args = None
+
+    def emit(self, record):
+        if record.msg.startswith("DC refinement"):
+            self.args = record.args
+
+
+def test_dc_log_counts_zmws_under_by_strand(tmp_path):
+    """Under --by-strand a ZMW is two work items; the "in N ZMWs" of the DC
+    log counts distinct holes: those whose records' rq moved against the
+    plain by-strand run."""
+    path = str(tmp_path / "in.subreads.bam")
+    write_subreads_bam(path, [simulate_zmw(hole=h, insert_len=250,
+                                           n_passes=n, snr=9.0)
+                              for h, n in ENGINE_HOLES])
+    base = [path, "-j", "1", "--by-strand", "--min-rq", "0", "--log-level",
+            "INFO"]
+    plain, dc = str(tmp_path / "plain.bam"), str(tmp_path / "dc.bam")
+    assert cli.run(base[:1] + [plain] + base[1:], device="cpu") == 0
+    cap = _LogArgs()
+    logging.getLogger("ccs_tpu").addHandler(cap)
+    try:
+        assert cli.run(base[:1] + [dc] + base[1:] + [
+            "--tpu-dc-polish", "--tpu-dc-qv-thresh",
+            str(DC_KW["tpu_dc_qv_thresh"])], device="cpu") == 0
+    finally:
+        logging.getLogger("ccs_tpu").removeHandler(cap)
+
+    def records(p):
+        with BamReader(p) as r:
+            return {rec.name: (rec.seq.tobytes(), rec.tag("rq"),
+                               rec.tag("zm")) for rec in r}
+    a, b = records(plain), records(dc)
+    assert a.keys() == b.keys() and all(n.endswith(("/fwd", "/rev"))
+                                        for n in a)
+    moved = {a[n][2] for n in a if a[n][1] != b[n][1]}
+    both = [h for h in moved if sum(a[n][2] == h and a[n][1] != b[n][1]
+                                    for n in a) == 2]
+    assert all(a[n][0] == b[n][0] for n in a)
+    assert both, "no hole with both strands processed: the test needs one"
+    assert int(cap.args[3]) == len(moved)
 
 
 def _bundle(tmp_path, conf):

@@ -153,18 +153,6 @@ def test_cli_matches_jax_cli(skill_fixture, tmp_path):
         assert fj.read() == ft.read()
 
 
-@pytest.mark.parametrize("flag", [["--tpu-num-hosts", "2"]])
-def test_unported_options_raise(skill_fixture, tmp_path, flag):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.run([skill_fixture, str(tmp_path / "o.bam"), *flag],
-                device="cpu")
-
-
-def test_engine_rejects_unported_config():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        CcsEngine(CcsConfig(tpu_mesh_shape=(2,)), None, "cpu")
-
-
 def test_cli_without_cuda_raises(skill_fixture, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -184,6 +172,8 @@ def test_port_imports_no_jax():
     out = _python(
         "import sys, numpy as np, torch\n"
         "import ccs_tpu_torch, ccs_tpu_torch.cli\n"
+        "import ccs_tpu_torch.parallel.mesh\n"
+        "import ccs_tpu_torch.parallel.multihost\n"
         "import ccs_tpu_torch.models.dc_polisher, "
         "ccs_tpu_torch.models.train_dc, ccs_tpu_torch.models.fit, "
         "ccs_tpu_torch.models.fit_bundle\n"
