@@ -376,9 +376,10 @@ __device__ void slot_ops(int u, int npos, const int* pos, const int* tplc,
     const int t0 = tplc[0];
     const Op pxx = ctx_op(ctx, x, x);
     const Op px0 = ctx_op(ctx, x, t0);
+    const bool h0 = tl > 0;                       // an old base 0 to follow
     o0 = make_op(z, pxx.ie, 1.f);
-    o1 = make_op(pxx.me, px0.ie, pxx.dp);
-    o2 = make_op(px0.me, tab.ie[1 + 1], px0.dp);
+    o1 = make_op(pxx.me, h0 ? px0.ie : z, pxx.dp);
+    o2 = h0 ? make_op(px0.me, tab.ie[1 + 1], px0.dp) : make_op(z, z, 1.f);
     s = 0;
     q = min(1, tl);
     return;

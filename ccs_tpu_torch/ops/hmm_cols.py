@@ -3,7 +3,9 @@ O(R) mutation scoring by column bridging.
 
 Counterpart of ``ccs_tpu.ops.hmm_cols`` (see its docstring for the
 algebra). This is the port's CPU path and the oracle the CUDA scorer
-(``csrc/hmm_score.cu``) is held against.
+(``csrc/hmm_score.cu``) is held against; ``mutation_ops`` and
+``score_mutants_cols`` score the round-1 enumeration of the reference loop
+(``pipeline.polish``).
 
 Every reduction here runs in a fixed order that does not depend on the
 batch size — 4-term emission sums and the sum over subreads are written
@@ -26,6 +28,7 @@ from ccs_tpu_torch.ops.tables import position_tables
 
 TINY = 1e-30
 NEG = -1e30
+MUTS_PER_POS = 8  # round-1 enumeration: 3 subs, 1 del, 4 ins per position
 
 
 class HmmColumns(NamedTuple):
@@ -278,7 +281,10 @@ def mutation_ops_at(tpl, tlen, snr_bin, tables, posb, kindb):
 
 def prepend_ops(tpl, tlen, snr_bin, tables):
     """Bridge operators for the 4 prepend mutations (base x before index 0):
-    (me4 [B,4,3,4], ie4 [B,4,3,4], dp [B,4,3], start [B,4], qidx [B,4])."""
+    (me4 [B,4,3,4], ie4 [B,4,3,4], dp [B,4,3], start [B,4], qidx [B,4]).
+    On an empty template the mutant is x alone: no insertion after x and
+    no old first base to step over (the JAX counterpart steps over a base
+    there and scores a two-base template)."""
     B, T = tpl.shape
     dev = tpl.device
     _me_o, ie_o, _dp_o = _padded_tables(tpl, tlen, snr_bin, tables)
@@ -290,10 +296,13 @@ def prepend_ops(tpl, tlen, snr_bin, tables):
     ie_1 = torch.where((tlen > 1)[:, None], ie_o[:, min(1, T - 1)], 0.0)
     one4 = torch.ones((B, 4), dtype=torch.float32, device=dev)
     z44 = torch.zeros((B, 4, 4), dtype=torch.float32, device=dev)
+    h0 = (tlen > 0)[:, None]                               # an old base 0
+    h04 = h0[..., None]
     pre_ops = [
         (z44, ie_xx, one4),
-        (me_xx, ie_x0, dp_xx),
-        (me_x0, ie_1[:, None, :].expand(B, 4, 4), dp_x0),
+        (me_xx, torch.where(h04, ie_x0, 0.0), dp_xx),
+        (torch.where(h04, me_x0, 0.0),
+         ie_1[:, None, :].expand(B, 4, 4), torch.where(h0, dp_x0, 1.0)),
     ]
     start = torch.zeros((B, 4), dtype=torch.long, device=dev)
     qidx = torch.minimum(torch.ones((B, 4), dtype=torch.long, device=dev),
@@ -342,3 +351,29 @@ def bridge_scores(reads, rlens, snr_bin, tables, columns: HmmColumns, ops,
             acc = acc + ll[:, c]
         outs.append(acc)
     return torch.cat(outs, dim=1)
+
+
+def mutation_ops(tpl, tlen, snr_bin, tables):
+    """Bridge operators for every mutant of the round-1 enumeration
+    (``pipeline.polish.make_mutants``): m < 8T is position m // 8 with
+    relative kind m % 8, m >= 8T prepends base m - 8T. Returns (me4
+    [B,M,3,4], ie4 [B,M,3,4], dp [B,M,3], start [B,M], qidx [B,M]),
+    M = 8T + 4."""
+    B, T = tpl.shape
+    m = torch.arange(MUTS_PER_POS * T, device=tpl.device)
+    posb = (m // MUTS_PER_POS)[None].expand(B, m.shape[0])
+    kindb = (m % MUTS_PER_POS)[None].expand(B, m.shape[0])
+    reg = mutation_ops_at(tpl, tlen, snr_bin, tables, posb, kindb)
+    pre = prepend_ops(tpl, tlen, snr_bin, tables)
+    return tuple(torch.cat([r, p], dim=1) for r, p in zip(reg, pre))
+
+
+def score_mutants_cols(tpl, tlen, snr_bin, reads, rlens, tables,
+                       columns: HmmColumns, valid, m_chunk: int = 28):
+    """Summed-over-subreads LL of every round-1 mutant by column bridging:
+    [B, 8T+4], NEG where ``valid`` is False. Matches the brute-force
+    ``pipeline.polish.score_mutants`` to the scorers' bar."""
+    ops = mutation_ops(tpl, tlen, snr_bin, tables)
+    lls = bridge_scores(reads, rlens, snr_bin, tables, columns, ops,
+                        m_chunk=m_chunk)
+    return torch.where(valid, lls, NEG)

@@ -32,7 +32,16 @@ no result line):
    with both scorers' launches counted over the shard threads (and over
    [cuda:0, cuda:1] where a second card is visible); (h) two CLI host
    processes (--tpu-num-hosts 2, a gloo coordinator on localhost) on the
-   400-ZMW BAM, merged by host 0, against the single CLI run of phase 4.
+   400-ZMW BAM, merged by host 0, against the single CLI run of phase 4;
+8. the CLI's modes, (k): --by-strand, --hd-finder and --hifi-kinetics on
+   the card against the port's CPU run of the same BAM, --all, FASTQ and
+   XML output and --chunk 1/2 + 2/2 against the card's own runs, then 16
+   ZMWs of 15 kb at tests/test_scale.py's bars;
+9. after the DC refinement and training checks, (i) both scorer kernels
+   against brute-force forwards of every mutant template (pipeline.polish,
+   ops.hmm_forward) and the round-1 brute-force loop against the fused
+   loop, and (j) the clean-position table refit (tools/fit_clean_qv.py)
+   against the JAX tool's own refit and the shipped table.
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 
@@ -86,6 +95,33 @@ SWEEP_FLOPS, BRIDGE_FLOPS, EDIT_OPS = 21, 59, 8
 # row's dependent chain is the carry through every word and four more:
 # Eq & Pv, D0, Ph, Pv.
 EDIT_WORD_OPS, EDIT_CHAIN_OPS = 12, 4
+# (i) brute force: windows of the production batch, mutants per forward
+BRUTE_WINDOWS, BRUTE_M_CHUNK = 256, 89
+# (i) the range of float32 scores: a window counts when every live read's
+# LL against its template (float64 forward) is at least EDGE_LANE_FLOOR, a
+# slot when its float32 brute-force LL equals the float64 one to FLOAT32_OK
+EDGE_LANE_FLOOR, FLOAT32_OK = -60.0, 1e-3
+# (j) the clean-position table refit: cells with at least FIT_MIN_SAMPLES
+# samples are measured; each must lie within FIT_QV_TOL QV of the JAX tool's
+# own refit (tools/fit_clean_qv.py, full grid, on the CPU: the cell means
+# below; the port's CPU refit read at most 0.37 QV from them) and within
+# FIT_SHIPPED_BAR QV of the shipped table (both CPU refits read up to 20.25
+# QV from it, at snr bin 3, coverage 16: the shipped file predates the
+# tool's present loop)
+FIT_MIN_SAMPLES, FIT_QV_TOL, FIT_SHIPPED_BAR = 80, 1.0, 21.25
+JAX_REFIT_MEANS = {
+    (2, 4): 4.609e-02, (2, 6): 7.399e-03, (2, 10): 1.387e-03,
+    (2, 16): 1.881e-04, (2, 22): 5.255e-07, (3, 4): 2.260e-02,
+    (3, 6): 6.218e-03, (3, 10): 6.422e-04, (3, 16): 1.300e-05,
+    (3, 22): 7.329e-10, (4, 4): 3.279e-02, (4, 6): 3.019e-03,
+    (4, 10): 9.092e-04, (4, 16): 5.653e-07, (4, 22): 5.103e-08,
+    (5, 4): 2.129e-02, (5, 6): 4.546e-03, (5, 10): 4.475e-04,
+    (5, 16): 1.562e-06, (5, 22): 4.797e-07}
+# (k) the CLI modes: ZMWs of MODES_INSERT bp with kinetics plus one
+# heteroduplex; then the 15 kb run, and tests/test_scale.py's bars on it
+MODES_ZMWS, MODES_INSERT, MODES_PASSES = 8, 250, 10
+SCALE_ZMWS, SCALE_INSERT, SCALE_PASSES = 16, 15_000, 8
+SCALE_LEN_TOL, SCALE_MIN_ANCHORS = 100, 10_000
 
 
 def log(msg: str) -> None:
@@ -556,6 +592,390 @@ def phase_edit_kernel(sims):
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None}
+
+
+def _brute_force(tpl, tlen, snr_bin, reads, rlens, tables):
+    """Every mutant of the 9-kind enumeration scored by a full forward of
+    its template, and the template's own forward: (lls [B, 9T+4] with NEG
+    at invalid slots, ll0 [B]), in the tables' float type."""
+    from ccs_tpu_torch.ops.hmm_forward import forward_batch
+    from ccs_tpu_torch.pipeline import polish
+    mt, ml, v8 = polish.make_mutants(tpl, tlen)
+    lls = polish.score_mutants(mt, ml, v8, snr_bin, reads, rlens, tables,
+                               m_chunk=BRUTE_M_CHUNK)
+    return (polish.absolute_layout(lls, tpl),
+            forward_batch(tpl, tlen, snr_bin, reads, rlens, tables).sum(-1))
+
+
+def phase_brute_force(arrs, params):
+    """(i) Both scorer kernels against brute-force forwards, which share
+    none of the bridging algebra: every mutant template of the 9-kind
+    enumeration built and scored by ops.hmm_forward.forward_batch, on the
+    first BRUTE_WINDOWS production windows and at the edge shapes (with
+    pulse-width factors; there on the windows and slots within float32's
+    range, see below); then the round-1 brute-force polish loop against
+    the fused loop on the dense kernel."""
+    import copy
+    import numpy as np
+    import torch
+    from ccs_tpu_torch.ops import hmm_score
+    from ccs_tpu_torch.ops.hmm_forward import forward_batch
+    from ccs_tpu_torch.ops.tables import params_to_torch
+    from ccs_tpu_torch.pipeline import polish
+    from ccs_tpu_torch.pipeline.polish_fused import (mutation_valid_new,
+                                                     polish_windows_fused)
+    from ccs_tpu_torch.sim.edges import edge_batch
+    dev = torch.device("cuda")
+    tables = params_to_torch(params, dev)
+    rng = np.random.default_rng(7)
+    eparams = copy.deepcopy(params)
+    eparams.pw_match = rng.uniform(0.6, 1.4, (8, 4)).astype(np.float32)
+    eparams.pw_ins = rng.uniform(0.5, 2.0, (8, 4)).astype(np.float32)
+    eparams.pw_match[:, 0] = eparams.pw_ins[:, 0] = 1.0
+    etables = params_to_torch(eparams, dev)
+    batches = [(f"{BRUTE_WINDOWS} production windows",
+                tuple(a[:BRUTE_WINDOWS] for a in arrs[:5]),
+                arrs[5][:BRUTE_WINDOWS], tables)]
+    for n_reads, t_cap, r_cap in EDGE_CAPS:
+        e = edge_batch(rng, n_reads, t_cap, r_cap)
+        batches.append((f"edges C={n_reads} T={t_cap} R={r_cap}", e,
+                        rng.random(e[0].shape) < 0.4, etables))
+    worst = {"dense": [0.0, 0.0], "sparse": [0.0, 0.0]}
+    n_mut, n_out, n_win, t_brute = 0, 0, 0, 0.0
+    for what, a, cand_np, tab in batches:
+        tpl, tlen, snr_bin, reads, rlens = (torch.from_numpy(x).to(dev)
+                                            for x in a)
+        cand = torch.from_numpy(cand_np).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        brute, ll0 = _brute_force(tpl, tlen, snr_bin, reads, rlens, tab)
+        torch.cuda.synchronize()
+        t_brute += time.monotonic() - t0
+        valid = mutation_valid_new(tpl, tlen)
+        if not torch.equal(valid, brute > polish.NEG / 2):
+            raise RuntimeError(f"brute force, {what}: the enumerations' "
+                               "valid slots differ")
+        # The range of float32 scores: the forward floors a column entry
+        # at 1e-30 of the column's maximum and a bridge its dot product at
+        # 1e-30 (the scorers and the JAX package alike), so a read of random
+        # bases far from its template (the edge shapes) scores wrong in
+        # both, differently. The comparison holds on the windows whose
+        # every live read scores above EDGE_LANE_FLOOR against the
+        # template, at the slots where the float32 forward equals the
+        # float64 one.
+        t64 = {k: v.double() for k, v in tab.items()}
+        exact, exact0 = _brute_force(tpl, tlen, snr_bin, reads, rlens, t64)
+        lanes = forward_batch(tpl, tlen, snr_bin, reads, rlens, t64)
+        rep0 = (((lanes >= EDGE_LANE_FLOOR) | (rlens < 0)).all(-1)
+                & ((ll0 - exact0).abs() <= FLOAT32_OK))
+        rep = rep0[:, None] & ((brute - exact).abs() <= FLOAT32_OK)
+        n_mut += int((valid & rep).sum())
+        n_out += int((valid & ~rep).sum())
+        n_win += int(rep0.sum())
+        if what == batches[0][0] and not (bool(rep[valid].all())
+                                          and bool(rep0.all())):
+            raise RuntimeError("brute force: production windows outside "
+                               "float32's range")
+        scored = hmm_score.scored_slots(tpl, tlen, cand)
+        for name, (lls, k0), ok in (
+                ("dense", hmm_score.score_dense(tpl, tlen, snr_bin, reads,
+                                                rlens, tab), valid & rep),
+                ("sparse", hmm_score.score_sparse(tpl, tlen, snr_bin, reads,
+                                                  rlens, cand, tab),
+                 valid & rep & scored)):
+            d0 = float(torch.where(rep0, (k0 - ll0).abs(), 0.0).max())
+            d = float(torch.where(ok, (lls - brute).abs(), 0.0).max())
+            worst[name] = [max(worst[name][0], d0), max(worst[name][1], d)]
+            if not (d0 <= LL0_TOL and d <= LLS_TOL):
+                raise RuntimeError(f"brute force, {what}: {name} kernel "
+                                   f"max |ll0 diff| {d0:.3g}, max |lls "
+                                   f"diff| {d:.3g} exceed the bars")
+            if name == "sparse" and int((lls[~scored] != 0).sum()):
+                raise RuntimeError(f"brute force, {what}: unbridged sparse "
+                                   "slots are not 0")
+    log(f"(i) brute force: {n_mut} valid mutants of {n_win} windows in "
+        f"{len(batches)} batches ({', '.join(b[0] for b in batches)}) by "
+        f"full forwards in {t_brute:.2f} s wall ({n_out} more at the edge "
+        f"shapes outside float32's range, left out); dense kernel max "
+        f"|ll0 - forward| "
+        f"{worst['dense'][0]:.3g}, max |lls - forward| "
+        f"{worst['dense'][1]:.3g}; sparse {worst['sparse'][0]:.3g}, "
+        f"{worst['sparse'][1]:.3g} (bars {LL0_TOL}, {LLS_TOL}); unbridged "
+        f"sparse slots 0")
+
+    tpl, tlen, snr_bin, reads, rlens = (torch.from_numpy(x).to(dev)
+                                        for x in batches[0][1])
+    zero = torch.zeros_like(tlen)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    st_old, _q, _p = polish.polish_windows(tpl, tlen, zero, tlen, snr_bin,
+                                           reads, rlens, tables,
+                                           max_iters=20, scoring="dense",
+                                           m_chunk=BRUTE_M_CHUNK)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    st_new, _q, _p = polish_windows_fused(tpl, tlen, zero, tlen, snr_bin,
+                                          reads, rlens, tables, max_iters=20)
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    differ = int(((st_old.tpl != st_new.tpl).any(-1)
+                  | (st_old.tlen != st_new.tlen)).sum())
+    log(f"(i) round-1 brute-force loop against the fused loop (dense "
+        f"kernel) on {BRUTE_WINDOWS} windows: {differ} templates differ "
+        f"(bar 1); {int(st_old.n_iter.max())} and "
+        f"{int(st_new.n_iter.max())} iterations, {t1 - t0:.2f} s and "
+        f"{t2 - t1:.3f} s")
+    if differ > 1 or bool(st_new.active.any()):
+        raise RuntimeError("the fused loop's templates differ from the "
+                           "brute-force loop's")
+
+
+def phase_fitter():
+    """(j) The clean-position table refit on the card (the full grid,
+    dense scoring: the dense kernel), against the JAX tool's own refit and
+    the shipped table, cell by cell over the measured cells."""
+    import numpy as np
+    from ccs_tpu_torch.ops import hmm_score
+    from ccs_tpu_torch.ops.tables import load_clean_perr
+    from ccs_tpu_torch.tools import fit_clean_qv as fit
+    # this slice's path: the fitter, counters from 0
+    hmm_score.score_dense.launches = 0
+    hmm_score.score_sparse.launches = 0
+    t0 = time.monotonic()
+    rows = fit.measure(device="cuda", log=lambda m: None)
+    wall = time.monotonic() - t0
+    launches = {"hmm_score_dense": hmm_score.score_dense.launches,
+                "hmm_score_sparse": hmm_score.score_sparse.launches}
+    tab, shipped = fit.fit_table(rows), load_clean_perr()
+    cells = sorted(k for k, v in rows.items() if len(v) >= FIT_MIN_SAMPLES)
+
+    def dqv(a, b):
+        return 10.0 * abs(np.log10(a) - np.log10(b))
+
+    d_ref = {k: dqv(min(rows[k].mean(), 0.25), JAX_REFIT_MEANS[k])
+             for k in cells if k in JAX_REFIT_MEANS}
+    d_ship = {k: dqv(tab[k], shipped[k]) for k in cells}
+    worst_ref, worst_ship = max(d_ref, key=d_ref.get), max(d_ship,
+                                                           key=d_ship.get)
+    log(f"(j) clean-position refit on the card: {len(rows)} cells, "
+        f"{len(cells)} measured, {sum(len(v) for v in rows.values())} "
+        f"samples, {wall:.1f} s wall; kernel launches {launches}")
+    log(f"(j) against the JAX tool's CPU refit: max |dQV| "
+        f"{d_ref[worst_ref]:.3f} at (snr bin, coverage) {worst_ref} (bar "
+        f"{FIT_QV_TOL}); against the shipped table: max |dQV| "
+        f"{d_ship[worst_ship]:.3f} at {worst_ship} (bar {FIT_SHIPPED_BAR}), "
+        f"mean {np.mean(list(d_ship.values())):.3f}")
+    if cells != sorted(JAX_REFIT_MEANS):
+        raise RuntimeError(f"the refit measured cells {cells}, the JAX tool "
+                           f"{sorted(JAX_REFIT_MEANS)}")
+    if d_ref[worst_ref] > FIT_QV_TOL or d_ship[worst_ship] > FIT_SHIPPED_BAR:
+        raise RuntimeError("the refit table is off its references")
+    if launches["hmm_score_dense"] <= 0:
+        raise RuntimeError("the fitter did not launch the dense kernel")
+    return launches
+
+
+def _capturing_run(argv, device=None):
+    """cli.run with the results it emits captured: (rc, results in input
+    order, seconds, wall split, kernel launches from 0)."""
+    from ccs_tpu_torch import cli
+    from ccs_tpu_torch.ops import hmm_score
+    from ccs_tpu_torch.pipeline import orchestrator
+    run_pipeline, results = orchestrator.run_pipeline, []
+
+    def spy(engine, zmws, emit, **kw):
+        def keep(res, n_in):
+            results.extend(res)
+            emit(res, n_in)
+        return run_pipeline(engine, zmws, keep, **kw)
+
+    cap = _LogArgs()
+    logging.getLogger("ccs_tpu").addHandler(cap)
+    hmm_score.score_dense.launches = 0
+    hmm_score.score_sparse.launches = 0
+    orchestrator.run_pipeline = spy
+    try:
+        t0 = time.monotonic()
+        rc = cli.run(argv + ["--log-level", "INFO"], device=device)
+        dt = time.monotonic() - t0
+    finally:
+        orchestrator.run_pipeline = run_pipeline
+        logging.getLogger("ccs_tpu").removeHandler(cap)
+    if rc != 0:
+        raise RuntimeError(f"cli.run {argv} returned {rc}")
+    return rc, results, dt, cap.args["wall split"], {
+        "hmm_score_dense": hmm_score.score_dense.launches,
+        "hmm_score_sparse": hmm_score.score_sparse.launches}
+
+
+def _same_cli_results(got, ref, what) -> float:
+    """Statuses, strands and sequences identical; QVs and rq within
+    QV_TOL; returns the largest gap."""
+    import numpy as np
+    if len(got) != len(ref):
+        raise RuntimeError(f"{what}: {len(got)} results, {len(ref)} expected")
+    worst = 0.0
+    for a, b in zip(got, ref):
+        key = (a.hole, a.strand, a.status.name)
+        if key != (b.hole, b.strand, b.status.name):
+            raise RuntimeError(f"{what}: {key} vs {(b.hole, b.strand, b.status.name)}")
+        if (a.seq is None) != (b.seq is None) or (
+                a.seq is not None and not np.array_equal(a.seq, b.seq)):
+            raise RuntimeError(f"{what}: hole {a.hole} {a.strand}: "
+                               "sequences differ")
+        if a.qv is not None:
+            worst = max(worst, float(np.abs(a.qv - b.qv).max()),
+                        abs(a.rq - b.rq))
+    if worst > QV_TOL:
+        raise RuntimeError(f"{what}: QVs or rq differ by {worst} > {QV_TOL}")
+    return worst
+
+
+def phase_cli_modes(workdir):
+    """(k) The CLI's modes on the card. --by-strand, --hd-finder and
+    --hifi-kinetics against the port's CPU run on the same BAM (MODES_ZMWS
+    ZMWs with kinetics tags and a heteroduplex): statuses, strands and
+    sequences identical, QVs and rq within QV_TOL, reports equal, and with
+    --hifi-kinetics the kinetics tags equal. --all, FASTQ and XML output,
+    --chunk 1/2 + 2/2 on the card alone, each against the card's own runs
+    (--all: one record per ZMW but the heteroduplex). Returns the kernel
+    launches of the card runs."""
+    import gzip
+    import numpy as np
+    from ccs_tpu_torch.ops import dna
+    from ccs_tpu_torch.sim.simulator import (simulate_heteroduplex_zmw,
+                                             simulate_zmw,
+                                             write_subreads_bam)
+    d = os.path.join(workdir, "modes")
+    os.makedirs(d)
+    inp = os.path.join(d, "in.subreads.bam")
+    zmws = [simulate_zmw(hole=h, insert_len=MODES_INSERT,
+                         n_passes=MODES_PASSES, snr=E2E_SNR)
+            for h in range(MODES_ZMWS)]
+    zmws.append(simulate_heteroduplex_zmw(hole=MODES_ZMWS, insert_len=400,
+                                          n_passes=12, ins_len=40,
+                                          snr=E2E_SNR))
+    write_subreads_bam(inp, zmws, with_kinetics=True)
+    launches = {"hmm_score_dense": 0, "hmm_score_sparse": 0}
+
+    def on_card(argv):
+        out = _capturing_run([inp] + argv)
+        for k, v in out[4].items():
+            launches[k] += v
+        return out
+
+    def path(name):
+        return os.path.join(d, name)
+
+    for flags in (["--by-strand", "--min-rq", "0.9"],
+                  ["--hd-finder", "--min-rq", "0.9"], ["--hifi-kinetics"]):
+        tag = flags[0].strip("-")
+        _rc, res_g, t_g, _sp, _l = on_card([path(f"{tag}.g.bam")] + flags)
+        _rc, res_c, t_c, _sp, _l = _capturing_run(
+            [inp, path(f"{tag}.c.bam")] + flags, device="cpu")
+        worst = _same_cli_results(res_g, res_c, f"--{tag} card vs CPU")
+        with open(path(f"{tag}.g.ccs_report.txt")) as fg, \
+                open(path(f"{tag}.c.ccs_report.txt")) as fc:
+            if fg.read() != fc.read():
+                raise RuntimeError(f"--{tag}: the reports differ")
+        rec_g, rec_c = (_bam_rows(path(f"{tag}.{x}.bam")) for x in "gc")
+        if [r[0] for r in rec_g] != [r[0] for r in rec_c] or any(
+                a[1] != b[1] for a, b in zip(rec_g, rec_c)):
+            raise RuntimeError(f"--{tag}: the BAM records differ")
+        kin = ("fi", "fp", "ri", "rp", "fn", "rn")
+        if tag == "hifi-kinetics" and any(
+                {k: a[3].get(k) for k in kin} != {k: b[3].get(k) for k in kin}
+                or "fi" not in a[3] for a, b in zip(rec_g, rec_c)):
+            raise RuntimeError("--hifi-kinetics: the kinetics tags differ")
+        strands = sorted({r.strand for r in res_g})
+        n_ok = sum(r.status.name == "SUCCESS" for r in res_g)
+        log(f"(k) --{tag}: card == CPU on {len(res_g)} results ({n_ok} "
+            f"SUCCESS, strands {strands}), max |QV or rq diff| {worst:.3g} "
+            f"(bar {QV_TOL}), reports and records equal; card {t_g:.2f} s, "
+            f"CPU {t_c:.2f} s")
+
+    # card-only modes, each against the card's own default run
+    t_w = on_card([path("whole.consensusreadset.xml")])[2]
+    whole = _bam_rows(path("whole.bam"))
+    with open(path("whole.consensusreadset.xml")) as fh:
+        xml = fh.read()
+    want = (f"<pbds:NumRecords>{len(whole)}</pbds:NumRecords>",
+            f"<pbds:TotalLength>{sum(len(r[1]) for r in whole)}"
+            "</pbds:TotalLength>")
+    if not all(w in xml for w in want) or not os.path.exists(
+            path("whole.bam.pbi")):
+        raise RuntimeError("XML output: the dataset does not describe its BAM")
+    on_card([path("out.fastq.gz")])
+    with gzip.open(path("out.fastq.gz"), "rt") as fh:
+        lines = fh.read().strip().split("\n")
+    fq = [(lines[i][1:], lines[i + 1], lines[i + 3])
+          for i in range(0, len(lines), 4)]
+    bam = [(r[0], dna.decode(np.frombuffer(r[1], np.int8)).decode(),
+            "".join(chr(q + 33) for q in r[2])) for r in whole]
+    if fq != bam:
+        raise RuntimeError("FASTQ output: other sequences or QVs than the "
+                           "BAM run")
+    merged = []
+    for i in (1, 2):
+        on_card([path(f"c{i}.bam"), "--chunk", f"{i}/2"])
+        merged += _bam_rows(path(f"c{i}.bam"))
+    if sorted(merged, key=lambda r: r[0]) != sorted(whole,
+                                                     key=lambda r: r[0]):
+        raise RuntimeError("--chunk 1/2 + 2/2 do not merge to the whole run")
+    _rc, res_a, _t, _sp, _l = on_card([path("all.bam"), "--all"])
+    n_all = len(_bam_rows(path("all.bam")))
+    n_hd = sum(r.status.name == "HETERODUPLEXES" for r in res_a)
+    if n_hd != 1 or n_all != len(zmws) - n_hd:
+        raise RuntimeError(f"--all wrote {n_all} records for {len(zmws)} "
+                           f"ZMWs, {n_hd} of them heteroduplexes")
+    log(f"(k) card only: XML ({len(whole)} records, {t_w:.2f} s), FASTQ = "
+        f"the BAM's sequences and QVs, --chunk 1/2 + 2/2 = the whole run "
+        f"({len(merged)} records), --all {n_all} records for {len(zmws)} "
+        f"ZMWs (one a heteroduplex, which --all does not write); kernel "
+        f"launches of the card runs {launches}")
+    if launches["hmm_score_sparse"] <= 0:
+        raise RuntimeError("the CLI modes did not launch the sparse kernel")
+    return launches
+
+
+def phase_scale(workdir):
+    """(k) SCALE_ZMWS ZMWs of 15 kb x SCALE_PASSES passes through the CLI on
+    the card, each held to tests/test_scale.py's bars: SUCCESS, rq > 0.99,
+    length within SCALE_LEN_TOL of the insert, more than SCALE_MIN_ANCHORS
+    13-mer anchors against the truth (in either orientation)."""
+    from ccs_tpu_torch.ops import dna
+    from ccs_tpu_torch.ops.align import anchor_chain
+    from ccs_tpu_torch.sim.simulator import simulate_zmw, write_subreads_bam
+    inp = os.path.join(workdir, "scale.subreads.bam")
+    t0 = time.monotonic()
+    sims = [simulate_zmw(hole=h, insert_len=SCALE_INSERT,
+                         n_passes=SCALE_PASSES, snr=E2E_SNR)
+            for h in range(SCALE_ZMWS)]
+    write_subreads_bam(inp, sims)
+    t_sim = time.monotonic() - t0
+    _rc, res, dt, sp, launches = _capturing_run(
+        [inp, os.path.join(workdir, "scale.bam")])
+    worst_len, fewest = 0, None
+    for z, r in zip(sims, res):
+        if r.status.name != "SUCCESS" or not r.rq > 0.99:
+            raise RuntimeError(f"15 kb hole {r.hole}: {r.status.name}, rq "
+                               f"{r.rq}")
+        worst_len = max(worst_len, abs(len(r.seq) - SCALE_INSERT))
+        n = max(len(anchor_chain(r.seq, z.insert, 13)),
+                len(anchor_chain(r.seq, dna.revcomp(z.insert), 13)))
+        fewest = n if fewest is None else min(fewest, n)
+    log(f"(k) 15 kb: {len(res)} ZMWs x {SCALE_PASSES} passes in {dt:.3f} s "
+        f"= {len(res) / dt:.3f} ZMW/s (simulated in {t_sim:.1f} s); wall "
+        f"split prepare {sp[0]:.3f} thread-s, device {sp[1]:.3f} s, busy "
+        f"{sp[2]:.3f} s, finalize {sp[3]:.3f} s; all SUCCESS, min rq "
+        f"{min(r.rq for r in res):.5f}, max |length - {SCALE_INSERT}| "
+        f"{worst_len}, fewest 13-mer anchors {fewest}; kernel launches "
+        f"{launches}")
+    if len(res) != SCALE_ZMWS or worst_len >= SCALE_LEN_TOL or \
+            fewest <= SCALE_MIN_ANCHORS:
+        raise RuntimeError("15 kb run below tests/test_scale.py's bars")
+    if launches["hmm_score_sparse"] <= 0:
+        raise RuntimeError("the 15 kb run did not launch the sparse kernel")
 
 
 class _LogArgs(logging.Handler):
@@ -1098,13 +1518,16 @@ sys.exit(rc)
 
 
 def _bam_rows(path: str) -> list:
-    """(name, sequence, binned QVs, np, rq) of a BAM's records, in order."""
+    """(name, sequence, binned QVs, tags) of a BAM's records, in order;
+    array tags as bytes."""
     import numpy as np
     from ccs_tpu_torch.io.bam import BamReader
     with BamReader(path) as r:
         return [(rec.name, np.asarray(rec.seq).tobytes(),
-                 np.asarray(rec.qual).tobytes(), int(rec.tag("np")),
-                 float(rec.tag("rq"))) for rec in r]
+                 np.asarray(rec.qual).tobytes(),
+                 {k: (np.asarray(v.value).tobytes()
+                      if isinstance(v.value, np.ndarray) else v.value)
+                  for k, v in rec.tags.items()}) for rec in r]
 
 
 def phase_two_hosts(workdir):
@@ -1207,8 +1630,18 @@ def main() -> int:
             phase_dc_gpu_vs_cpu(sims, params, workdir)
             phase_sharded_engine(sims, params)
             phase_two_hosts(workdir)
+            t0 = time.monotonic()
+            phase_cli_modes(workdir)
+            phase_scale(workdir)
+            log(f"(k) took {time.monotonic() - t0:.1f} s")
         phase_dc_refine(window_arrs, default_params())
         phase_dc_train()
+        t0 = time.monotonic()
+        phase_brute_force(window_arrs, default_params())
+        log(f"(i) took {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        phase_fitter()
+        log(f"(j) took {time.monotonic() - t0:.1f} s")
     finally:
         shutdown_pool()
     for row in rows:

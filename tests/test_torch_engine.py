@@ -177,6 +177,8 @@ def test_port_imports_no_jax():
         "import ccs_tpu_torch.models.dc_polisher, "
         "ccs_tpu_torch.models.train_dc, ccs_tpu_torch.models.fit, "
         "ccs_tpu_torch.models.fit_bundle\n"
+        "import ccs_tpu_torch.pipeline.polish, ccs_tpu_torch.ops.hmm_forward, "
+        "ccs_tpu_torch.ops.hmm_oracle, ccs_tpu_torch.tools.fit_clean_qv\n"
         "from ccs_tpu_torch.models.chemistry import default_params\n"
         "from ccs_tpu_torch.ops.tables import params_to_torch\n"
         "from ccs_tpu_torch.ops.hmm_score import score_dense\n"

@@ -269,6 +269,24 @@ def case_adapters_hd_kinetics(pkg, tmp):
             hd.strand_span_difference(rpos, [0, 1, 0], 20, 60)]
 
 
+def case_hmm_oracle(pkg, tmp):
+    """The numpy log-space oracle: forward and backward matrices, the
+    marginal LL and the path enumeration, with pulse-width codes."""
+    oracle, chem = _mod(pkg, "ops.hmm_oracle"), _mod(pkg, "models.chemistry")
+    params = chem.default_params()
+    rng = np.random.default_rng(12)
+    tpl = rng.integers(0, 4, 9).astype(np.int8)
+    read = chem.pack_read_pw(rng.integers(0, 4, 11), rng.integers(0, 4, 11))
+    small_t, small_r = tpl[:4], read[:5]
+    return [oracle.position_tables(tpl, params, 3),
+            oracle.decode_read(read, params, 3),
+            oracle.forward_matrix(tpl, read, params, 3),
+            oracle.backward_matrix(tpl, read, params, 3),
+            oracle.forward_ll(tpl, read, params, 3),
+            oracle.forward_ll(tpl[:0], read[:0], params),
+            oracle.brute_force_ll(small_t, small_r, params, 5)]
+
+
 def case_report_text(pkg, tmp):
     stats = _mod(pkg, "report.stats")
     st = _stats(pkg)
@@ -325,7 +343,8 @@ def test_copy_equals_original(name, tmp_path):
 
 
 COPIED_MODULES = (
-    "statuses", "config", "ops.dna", "ops.align", "ops.sdust", "io.bgzf",
+    "statuses", "config", "ops.dna", "ops.align", "ops.sdust",
+    "ops.hmm_oracle", "io.bgzf",
     "io.bam", "io.pbi", "io.fastq", "io.datasetxml", "models.chemistry",
     "models.fit", "models.fit_bundle", "native", "pipeline.qvbin",
     "pipeline.draft", "pipeline.windows", "pipeline.adapters",

@@ -25,6 +25,7 @@ class that one loop applies and the other postpones or applies twice.
 Anything else is kind (b): a result of the port that differs from the
 reference for another reason."""
 
+import contextlib
 import functools
 
 import jax
@@ -36,11 +37,14 @@ import torch
 from ccs_tpu.models.chemistry import default_params as jax_default_params
 from ccs_tpu.ops.hmm_jax import params_to_device
 from ccs_tpu.pipeline import polish_fused as jpf
+from ccs_tpu_torch.cli import iter_zmws
 from ccs_tpu_torch.config import CcsConfig
+from ccs_tpu_torch.io.bam import BamReader
 from ccs_tpu_torch.pipeline import polish_fused as tpf
 from ccs_tpu_torch.pipeline import zmw as port_zmw
 from ccs_tpu_torch.pipeline.engine import CcsEngine
-from ccs_tpu_torch.sim.simulator import simulate_zmw
+from ccs_tpu_torch.sim.simulator import (simulate_heteroduplex_zmw,
+                                         simulate_zmw, write_subreads_bam)
 
 torch.set_num_threads(1)
 
@@ -62,6 +66,65 @@ KINDS_BY_HOLE = {
     33: ["a2"]}
 
 
+def _jax_class_max(vals, seg):
+    """The maximum of vals [B, N] over each segment id of seg [B, N],
+    written back to every member."""
+    def row(v, sg):
+        return jax.ops.segment_max(v, sg, num_segments=v.shape[0])[sg]
+    return jax.vmap(row)(vals, seg)
+
+
+def jax_equalize_equivalent(lls, tpl):
+    """polish_fused.equalize_equivalent (the port's tie rule) on JAX
+    arrays, for use inside the JAX loop's jit."""
+    B, T = tpl.shape
+    t = tpl.astype(jnp.int32)
+    reg = lls[:, :9 * T].reshape(B, T, 9)
+    start = jnp.concatenate([jnp.ones((B, 1), bool), t[:, 1:] != t[:, :-1]],
+                            axis=1)
+    dl = reg[..., 4]
+    dl = jnp.where(dl > jpf.NEG / 2,
+                   _jax_class_max(dl, jnp.cumsum(start, axis=1) - 1), dl)
+    junc = jnp.concatenate([lls[:, 9 * T:][:, None, :], reg[..., 5:]],
+                           axis=1)                         # [B, T+1, 4]
+    jstart = jnp.concatenate([jnp.ones((B, 1, 4), bool),
+                              t[:, :, None] != jnp.arange(4)], axis=1)
+    cm = jax.vmap(_jax_class_max, in_axes=2, out_axes=2)(
+        junc, jnp.cumsum(jstart, axis=1) - 1)
+    junc = jnp.where(junc > jpf.NEG / 2, cm, junc)
+    reg = jnp.concatenate([reg[..., :4], dl[..., None], junc[:, 1:]], axis=-1)
+    return jnp.concatenate([reg.reshape(B, 9 * T), junc[:, 0]], axis=1)
+
+
+@contextlib.contextmanager
+def jax_ties_resolved():
+    """While in the block, the JAX loop's scorer gives every class of
+    equivalent mutations its maximum, as the port does: a JAX run then
+    differs from the port's only by something other than a tie settled by
+    rounding. The JAX package's files are untouched."""
+    orig = jpf.score_all
+
+    def score_all(tpl, *args, **kw):
+        lls, ll0 = orig(tpl, *args, **kw)
+        return jax_equalize_equivalent(lls, tpl), ll0
+
+    jpf.score_all = score_all
+    try:
+        yield
+    finally:
+        jpf.score_all = orig
+
+
+def heteroduplex_with_kinetics(path):
+    """The heteroduplex of the strand-mode divergence (tests/
+    test_torch_cli_strand.py): hole 11, 400 bp, 12 passes, a 40 bp
+    insertion on the reverse strand, SNR 9, written with kinetics tags
+    (pulse widths reach the polish as pw bins)."""
+    write_subreads_bam(path, [simulate_heteroduplex_zmw(
+        hole=11, insert_len=400, n_passes=12, ins_len=40, snr=9.0)],
+        with_kinetics=True)
+
+
 def _zin(z):
     subs, qpos = [], 0
     for read, cx in zip(z.subreads, z.cx):
@@ -79,17 +142,16 @@ def _jax_scorer():
         t, tl, sb, rd, rl, tables, cand=cand))
 
 
-def _window_rows(holes):
-    """The polish inputs of every window of the holes' ZMWs, as the engine
-    stages them (the host prepare is the port's; it is held equal to the
-    JAX package's by test_torch_host.py), padded with dead rows."""
-    eng = CcsEngine(CcsConfig(**ENGINE_KW), None, "cpu")
+def _window_rows(zmws, cfg_kw):
+    """The polish inputs of every window of the ZMWs, as the engine stages
+    them under the config ``cfg_kw`` (the host prepare is the port's; it is
+    held equal to the JAX package's by test_torch_host.py), padded with dead
+    rows."""
+    eng = CcsEngine(CcsConfig(**cfg_kw), None, "cpu")
     cfg = eng.cfg
-    sims = [simulate_zmw(hole=h, insert_len=250, n_passes=8 + h % 3, snr=9.0)
-            for h in holes]
-    items = eng.prepare_batch([_zin(z) for z in sims])
-    rows = [(it, w) for it in items for w in range(len(it.batch.windows))]
+    items = eng.prepare_batch(zmws)
     assert not any(it.terminal or it.result.has_tandem_repeat for it in items)
+    rows = [(it, w) for it in items for w in range(len(it.batch.windows))]
     n = -(-len(rows) // ROW_PAD) * ROW_PAD
     T, R, C = cfg.tpu_window_tpl_cap, cfg.tpu_window_read_cap, 16
     a = dict(tpl=np.full((n, T), -1, np.int8), tlen=np.ones(n, np.int32),
@@ -98,7 +160,8 @@ def _window_rows(holes):
              reads=np.full((n, C, R), -1, np.int8),
              rlens=np.full((n, C), -1, np.int32),
              is_first=np.zeros(n, bool), pri=np.zeros((n, T), np.float32),
-             hole=np.full(n, -1), win=np.full(n, -1))
+             hole=np.full(n, -1), win=np.full(n, -1),
+             strand=np.full(n, "", object))
     for i, (it, w) in enumerate(rows):
         b = it.batch
         cc = min(b.reads.shape[1], C)
@@ -109,6 +172,7 @@ def _window_rows(holes):
         a["is_first"][i] = w == 0
         a["pri"][i] = b.priority[w]
         a["hole"][i], a["win"][i] = it.zmw.hole, w
+        a["strand"][i] = it.result.strand
     a["pri"] = np.where(np.arange(T)[None, :] < a["tlen"][:, None],
                         a["pri"], 0.0).astype(np.float32)
     return a, eng.tables, cfg
@@ -164,10 +228,18 @@ def _slot(T, p, k):
 
 
 def classify_divergence(holes):
-    """Drive both loops on the holes' windows; return one record per window
-    whose selections differ, taken at its first differing iteration:
-    dict(hole, win, it, kind, jax, port)."""
-    a, tables, cfg = _window_rows(tuple(holes))
+    """classify_zmws on the pinned set's holes under ENGINE_KW."""
+    sims = [simulate_zmw(hole=h, insert_len=250, n_passes=8 + h % 3, snr=9.0)
+            for h in holes]
+    return classify_zmws([_zin(z) for z in sims], ENGINE_KW)
+
+
+def classify_zmws(zmws, cfg_kw):
+    """Drive both loops on the windows of the ZMWs (port ZmwInputs) as the
+    engine prepares them under the config ``cfg_kw``; return one record per
+    window whose selections differ, taken at its first differing iteration:
+    dict(hole, strand, win, it, kind, jax, port)."""
+    a, tables, cfg = _window_rows(zmws, cfg_kw)
     n, T = a["tpl"].shape
     thresh, max_iters = cfg.tpu_polish_thresh, cfg.max_polish_iterations
     jscore = _jax_scorer()
@@ -228,7 +300,8 @@ def classify_divergence(holes):
                     kind = "b"
             if pe[i] != pp[i]:
                 kind = "b"
-            records.append(dict(hole=int(a["hole"][i]), win=int(a["win"][i]),
+            records.append(dict(hole=int(a["hole"][i]),
+                                strand=a["strand"][i], win=int(a["win"][i]),
                                 it=it, kind=kind, jax=pj[i], port=pp[i]))
         J = _advance_jax(J, js, first_j, const_j, jscore)
         P = _advance_port(P, ps, first_t, const_t, tables)
@@ -289,6 +362,44 @@ def test_first_divergence_is_a_tie_settled_by_rounding(hole):
     each scored as a single deletion (a2)."""
     recs = classify_divergence([hole])
     assert [r["kind"] for r in recs] == KINDS_BY_HOLE[hole], recs
+
+
+def test_jax_tie_rule_equals_the_ports():
+    """jax_equalize_equivalent gives what polish_fused.equalize_equivalent
+    gives, bit for bit: homopolymer-rich templates, invalid slots."""
+    rng = np.random.default_rng(0)
+    tpl = rng.integers(0, 2, (6, 20)).astype(np.int8)
+    lls = rng.normal(0, 3, (6, 9 * 20 + 4)).astype(np.float32)
+    lls[rng.random(lls.shape) < 0.2] = jpf.NEG
+    want = tpf.equalize_equivalent(torch.from_numpy(lls),
+                                   torch.from_numpy(tpl)).numpy()
+    got = np.asarray(jax_equalize_equivalent(jnp.asarray(lls),
+                                             jnp.asarray(tpl)))
+    np.testing.assert_array_equal(got, want)
+
+
+# The strand-mode divergence of the two CLIs on heteroduplex_with_kinetics
+# (tests/test_torch_cli_strand.py): its windows as the engine prepares them
+# under --by-strand and under --hd-finder (the same strand windows), and the
+# kinds of each window's first differing selection.
+STRAND_KINDS = [("fwd", 11, "a1"), ("fwd", 17, "a1"), ("rev", 2, "a1"),
+                ("rev", 9, "a2")]
+
+
+@pytest.mark.parametrize("mode", ["by_strand", "hd_finder"])
+def test_strand_divergence_is_a_tie_settled_by_rounding(mode, tmp_path):
+    """Forward windows 11 and 17: another member of one insertion class
+    (a1), as in the record that differs between the CLIs. Reverse window
+    2: the same (a1); reverse window 9: JAX inserts two bases of one class
+    in one iteration, each scored as a single insertion (a2). Neither
+    reverse window changes that strand's record."""
+    path = str(tmp_path / "in.subreads.bam")
+    heteroduplex_with_kinetics(path)
+    with BamReader(path) as r:
+        zmws = list(iter_zmws(r, r.header.movie_name()))
+    recs = classify_zmws(zmws, {mode: True, "min_rq": 0.9})
+    assert [(r["strand"], r["win"], r["kind"]) for r in recs] == \
+        STRAND_KINDS, recs
 
 
 @pytest.mark.slow
