@@ -5,11 +5,12 @@ a torch device: ``python -m ccs_tpu_torch <in.subreads.bam>
 <out.{bam,fastq.gz,consensusreadset.xml}>``. ``build_parser``,
 ``config_from_args``, ``iter_zmws``, ``result_to_record``, ``fail_record``
 and ``run`` are copies of the JAX package's, which cannot be imported
-without JAX. ``--tpu-profile-dir`` traces the run with ``torch.profiler``
-(host ops, and the card's kernels on CUDA) into a Chrome trace. A run
-shards its windows over every visible CUDA device; ``--tpu-num-hosts N
---tpu-host-id i`` runs one host's share of a multi-host run
-(``parallel.multihost``).
+without JAX. ``--tpu-profile-dir`` writes one Chrome trace of the run: the
+card's activity (``torch.profiler``, CUDA only) and the program's spans
+(``telemetry``) on one clock, and logs where the host was while the card
+sat idle. A run shards its windows over every visible CUDA device;
+``--tpu-num-hosts N --tpu-host-id i`` runs one host's share of a
+multi-host run (``parallel.multihost``).
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import json
 import logging
 import os
 import sys
+import threading
+import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -40,7 +43,7 @@ from ccs_tpu_torch.report.stats import (RunStats, format_ccs_report,
                                         format_summary_log, hifi_summary_dict,
                                         report_json_dict)
 from ccs_tpu_torch.statuses import ZmwStatus
-from ccs_tpu_torch import __version__
+from ccs_tpu_torch import __version__, telemetry
 from ccs_tpu_torch.pipeline.engine import CcsEngine
 
 logger = logging.getLogger("ccs_tpu")
@@ -105,8 +108,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--tpu-stats-delta", type=str, default=None,
                    help=argparse.SUPPRESS)  # internal: multihost child dump
     p.add_argument("--tpu-profile-dir", type=str, default=None,
-                   help="write a torch.profiler Chrome trace of the run "
-                        "(host ops and device kernels) into this directory")
+                   help="write a Chrome trace of the run (the card's "
+                        "activity and the program's spans on one clock) "
+                        "into this directory")
     p.add_argument("--tpu-dc-polish", action="store_true",
                    help="Revio-style learned refinement of low-QV windows "
                         "(revio.md:29-53); model from dc_model.npz in "
@@ -265,15 +269,12 @@ def resolve_device(device=None) -> list[torch.device]:
     return make_zmw_mesh(devices=device)
 
 
-def _start_profiler(device: torch.device):
-    """A started torch.profiler over host ops (and CUDA kernels on a CUDA
-    device), or None when it cannot start: profiling is best-effort."""
+def _start_profiler():
+    """A started torch.profiler over CUDA activity, or None when it cannot
+    start: profiling is best-effort."""
     from torch.profiler import ProfilerActivity, profile
-    acts = [ProfilerActivity.CPU]
-    if device.type == "cuda":
-        acts.append(ProfilerActivity.CUDA)
     try:
-        prof = profile(activities=acts)
+        prof = profile(activities=[ProfilerActivity.CUDA])
         prof.start()
     except Exception as exc:  # noqa: BLE001 — profiling is best-effort
         logger.warning("torch.profiler unavailable: %s", exc)
@@ -281,14 +282,57 @@ def _start_profiler(device: torch.device):
     return prof
 
 
-def _stop_profiler(prof, out_dir: str) -> None:
-    import time
-    prof.stop()
+def _device_events(prof) -> list[tuple]:
+    """(device, stream, category, name, start ns, end ns) of every device
+    event of a stopped profiler, on ``time.time_ns``'s clock; the category
+    as ``export_chrome_trace`` names it (its events do not carry it in
+    every torch version)."""
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if str(e.device_type()).endswith("CUDA"):
+            name = e.name()
+            cat = ("gpu_memcpy" if name.startswith("Memcpy") else
+                   "gpu_memset" if name.startswith("Memset") else "kernel")
+            a = int(e.start_ns())
+            out.append((int(e.device_index()), int(e.device_resource_id()),
+                        cat, name, a, a + int(e.duration_ns())))
+    return out
+
+
+def _write_profile(prof, rec: telemetry.Recorder, out_dir: str,
+                   thread: str) -> None:
+    """Stop ``prof`` (None: no device trace), write the run's Chrome trace
+    into ``out_dir``, and log how each device's idle time divides among
+    the spans of ``thread``, the thread that issued the device work."""
+    t0 = time.perf_counter()
+    events = []
+    if prof is not None:
+        prof.stop()
+        events = _device_events(prof)
+    t1 = time.perf_counter()
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, time.strftime("ccs_tpu_torch_%Y%m%d_%H%M%S")
                         + f"_{os.getpid()}.trace.json")
-    prof.export_chrome_trace(path)
-    logger.info("device trace written to %s", path)
+    with open(path, "w") as fh:
+        json.dump(telemetry.chrome_trace(rec, events), fh)
+    spans = rec.timeline()
+    logger.info("trace written to %s: %d device events (%.1f s to stop the "
+                "profiler and read them), %d spans (%d dropped), %.1f s to "
+                "write", path, len(events), t1 - t0, len(spans), rec.dropped,
+                time.perf_counter() - t1)
+    spans = [s._replace(start_ns=rec.to_wall_ns(s.start_ns),
+                        end_ns=rec.to_wall_ns(s.end_ns))
+             for s in spans if s.thread == thread]
+    intervals: dict[int, list] = {}
+    for dev, _stream, _cat, _name, a, b in events:
+        intervals.setdefault(dev, []).append((a, b))
+    idle = telemetry.idle_by_span(intervals, spans)
+    logger.info("device idle by host span: %s", "; ".join(
+        f"device {dev}: " + ", ".join(
+            f"{name} {sec:.3f} s" for name, sec in
+            sorted(by_name.items(), key=lambda kv: -kv[1]))
+        for dev, by_name in sorted(idle.items()))
+        or "no device activity recorded")
 
 
 def run(argv: Optional[list[str]] = None, device=None) -> int:
@@ -469,19 +513,19 @@ def run(argv: Optional[list[str]] = None, device=None) -> int:
     if ckpt is not None and ckpt.resume_hole is not None:
         zmw_stream = (z for z in zmw_stream if not ckpt.should_skip(z.hole))
     from ccs_tpu_torch.pipeline.orchestrator import run_pipeline
-    prof = _start_profiler(engine.device) if cfg.tpu_profile_dir else None
+    prof = (_start_profiler()
+            if cfg.tpu_profile_dir and engine.device.type == "cuda" else None)
     try:
         run_pipeline(engine, zmw_stream, emit,
                      batch_size=cfg.batch_size, num_threads=cfg.num_threads,
                      input_buffer=cfg.input_buffer)
     finally:
-        if prof is not None:
-            _stop_profiler(prof, cfg.tpu_profile_dir)
+        if cfg.tpu_profile_dir:
+            _write_profile(prof, engine.telemetry, cfg.tpu_profile_dir,
+                           threading.current_thread().name)
     reader.close()
-    logger.info(
-        "wall split: prepare %.3f thread-s, device %.3f s, busy %.3f s, "
-        "finalize %.3f s", engine.t_prepare, engine.t_device, engine.t_busy,
-        engine.t_finalize)
+    logger.info(telemetry.wall_split_format(),
+                *engine.telemetry.wall_split())
     if cfg.tpu_dc_polish:
         logger.info("DC refinement: %d of %d windows processed, %d "
                     "corrected, in %d ZMWs", engine.dc_stats[1],

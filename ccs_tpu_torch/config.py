@@ -113,8 +113,9 @@ class CcsConfig:
                                         # the host prepare phase (the GIL
                                         # serializes ~40% of prepare under
                                         # threads); 0 = thread pool
-    tpu_profile_dir: Optional[str] = None  # write a jax.profiler trace of
-                                           # the run here (SURVEY §5 tracing)
+    tpu_profile_dir: Optional[str] = None  # write a Chrome trace of the
+                                           # run here: the card's activity
+                                           # and the span timeline
     tpu_dc_polish: bool = False        # learned low-QV window refinement
                                        # after Arrow (the Revio DeepConsensus
                                        # stage, revio.md:29-53); needs a

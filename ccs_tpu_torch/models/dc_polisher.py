@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ccs_tpu_torch import telemetry
 from ccs_tpu_torch.ops.align import guided_align
 from ccs_tpu_torch.ops.tables import params_to_torch
 from ccs_tpu_torch.pipeline.draft import _pileup_consensus
@@ -241,7 +242,7 @@ def apply_corrections(tpl, tlen, cs, ce, cls, allow,
 def refine_chunk(net: DcNet, ctx: int, tables: dict, state, qv,
                  reads, rlens, snr_bin,
                  qv_thresh: float = 25.0, conf_thresh: float = 2.0,
-                 allow_sub: bool = True):
+                 allow_sub: bool = True, rec=None):
     """Revio-shaped post-polish refinement of one window chunk
     (revio.md:29-53):
 
@@ -254,7 +255,9 @@ def refine_chunk(net: DcNet, ctx: int, tables: dict, state, qv,
     4. ``qv_rq`` is the model's calibrated QV on processed windows and the
        Arrow QV elsewhere, the stream ``rq`` averages.
 
-    Returns (tpl, tlen, cs, ce, qv_out, qv_rq, processed [B])."""
+    Returns (tpl, tlen, cs, ce, qv_out, qv_rq, processed [B]). The host
+    read of step 3 is a ``sync`` span of ``rec`` (a ``telemetry.Recorder``,
+    or None)."""
     B, T = state.tpl.shape
     dev = state.tpl.device
     coverage = (rlens >= 0).sum(-1).to(torch.int32)
@@ -271,7 +274,9 @@ def refine_chunk(net: DcNet, ctx: int, tables: dict, state, qv,
         processed, conf_thresh, allow_sub=allow_sub)
 
     qv_out = qv
-    if bool(applied.any()):
+    with telemetry.span(rec, "sync"):
+        any_applied = bool(applied.any())
+    if any_applied:
         lls2, ll2 = score_all(ntpl, nlen, snr_bin, reads, rlens, tables)
         qv2, _pe = _qv_from_lls(lls2, ll2, ntpl, nlen)
         qv_out = torch.where(applied[:, None], qv2, qv)

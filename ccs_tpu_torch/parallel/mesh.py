@@ -26,7 +26,9 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ccs_tpu_torch.parallel.step import make_polish_step, to_device
+from ccs_tpu_torch import telemetry
+from ccs_tpu_torch.parallel.step import (make_polish_step, to_device,
+                                         to_devices)
 
 
 def make_zmw_mesh(n_devices: Optional[int] = None,
@@ -114,7 +116,7 @@ def _concat(parts, sum_at: int):
 def shard_fused_polish(devices, tables_per_device: Sequence[dict],
                        max_iters: int = 40, thresh: float = 0.02,
                        compact: bool = False, sparse: bool = False,
-                       refine: Optional[Sequence] = None):
+                       refine: Optional[Sequence] = None, rec=None):
     """Sharded fused polish step over ``devices`` — the product path.
 
     Returns fn(tpl, tlen, cs, ce, snr_bin, reads, rlens, is_first,
@@ -128,16 +130,20 @@ def shard_fused_polish(devices, tables_per_device: Sequence[dict],
     with its model and tables bound) runs on each shard right after its
     polish, on the same device tensors; fn then returns (state, qv, stats,
     (qv_rq, processed, corrected)) with the refined templates in state.
+
+    ``rec``: the ``telemetry.Recorder`` that the steps' spans go to; with
+    more than one device the shard threads record ``h2d``, ``sync`` and
+    ``pull`` (the copy of their outputs to the host) in thread-seconds.
     """
     devices = [torch.device(d) for d in devices]
     steps = [make_polish_step(t, d, max_iters=max_iters, thresh=thresh,
-                              compact=compact, sparse=sparse)
+                              compact=compact, sparse=sparse, rec=rec)
              for t, d in zip(tables_per_device, devices)]
     if refine is None and len(devices) == 1:
         return steps[0]
 
     def run(k, *args):
-        args = tuple(to_device(a, devices[k]) for a in args)
+        args = to_devices(args, devices[k], rec)
         state, qv, stats = steps[k](*args)
         if refine is None:
             return state, qv, stats
@@ -152,6 +158,11 @@ def shard_fused_polish(devices, tables_per_device: Sequence[dict],
     if len(devices) == 1:
         return lambda *args: run(0, *args)
 
+    def pulled(k, *args):
+        out = run(k, *args)
+        with telemetry.span(rec, "pull"):
+            return _to_host(out)
+
     def fn(*args):
         pieces = []
         for a in args:
@@ -160,8 +171,7 @@ def shard_fused_polish(devices, tables_per_device: Sequence[dict],
             else:
                 pieces.append([a[s] for s in shard_slices(len(a),
                                                           len(devices))])
-        parts = run_on_shards(devices, lambda k, *a: _to_host(run(k, *a)),
-                              list(zip(*pieces)))
+        parts = run_on_shards(devices, pulled, list(zip(*pieces)))
         return _concat(parts, sum_at=2)
 
     return fn

@@ -13,22 +13,25 @@ refinement (``models.dc_polisher.refine_chunk``) on the same device
 tensors; its QVs for the rq stream come back with the chunk.
 
 The device step is synchronous here (the polish loop's host condition
-waits for the device every iteration), so chunks are submitted and
-collected one after another on the calling thread, and only the shards of
-a chunk run at once: ``t_busy`` and ``t_device`` both measure the wall time
-with at least one shard in flight.
+waits for the device every iteration), so chunks are packed, polished and
+scattered back one after another on the calling thread, and only the
+shards of a chunk run at once. The engine's ``telemetry`` recorder times
+each stage (``pack``, ``device_step`` with its ``h2d``, ``sync`` and
+``pull`` children, ``finalize``, and ``prepare`` in thread-seconds) and
+counts the polish (``windows_polished``, ``polish_iterations``,
+``windows_converged``); ``t_prepare``, ``t_device``, ``t_finalize``,
+``polish_stats`` and ``dc_stats`` read it.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
-import threading
-import time
 from typing import Optional, Sequence
 
 import numpy as np
 
+from ccs_tpu_torch import telemetry
 from ccs_tpu_torch.config import CcsConfig
 from ccs_tpu_torch.models.chemistry import ArrowParams, default_params
 from ccs_tpu_torch.pipeline.zmw import (ConsensusResult, ZmwInput,
@@ -58,6 +61,10 @@ class CcsEngine:
         self.n_dev = len(devices)
         self.device = devices[0]
         self.params = params or default_params()
+        # the run's spans and counters; the span timeline only where a
+        # profile is asked for
+        self.telemetry = telemetry.Recorder(
+            timeline=bool(self.cfg.tpu_profile_dir))
         # one table set per distinct device
         tables = {d: params_to_torch(self.params, d)
                   for d in dict.fromkeys(devices)}
@@ -65,9 +72,6 @@ class CcsEngine:
         self.tables = self.tables_per_device[0]
         self._dc_refine = None
         refine = None
-        # [windows refined, processed, corrected, ZMWs with a processed
-        # window] of the --tpu-dc-polish stage
-        self.dc_stats = np.zeros(4, np.int64)
         if self.cfg.tpu_dc_polish:
             self._dc_refine, refine = self._load_dc_refine()
 
@@ -77,18 +81,12 @@ class CcsEngine:
                 max_iters=self.cfg.max_polish_iterations,
                 thresh=self.cfg.tpu_polish_thresh,
                 compact=self.cfg.tpu_tail_bucket > 0, sparse=sparse,
-                refine=refine)
+                refine=refine, rec=self.telemetry)
         # candidate-sparse step for default chunks; the dense step serves
         # --disable-heuristics / tandem-repeat ZMWs
         self._polish_step = _mk(sparse=True)
         self._polish_step_dense = _mk(sparse=False)
         self.control = _load_control(self.cfg)
-        self.polish_stats = np.zeros(3, np.int64)
-        self._t_lock = threading.Lock()
-        self.t_prepare = 0.0   # thread-seconds in prepare
-        self.t_device = 0.0    # seconds in the device step
-        self.t_finalize = 0.0  # seconds in host stitch/finalize
-        self.t_busy = 0.0      # seconds with a chunk on the device
         # window counts rounded up to a multiple of the device count
         self.w_buckets = tuple(sorted(-(-w // self.n_dev) * self.n_dev
                                       for w in self.cfg.tpu_window_buckets))
@@ -97,6 +95,38 @@ class CcsEngine:
             c for c in sorted(self.cfg.tpu_coverage_buckets) if c <= cap)
         if not self.c_buckets or self.c_buckets[-1] < cap:
             self.c_buckets = self.c_buckets + (cap,)
+
+    @property
+    def t_prepare(self) -> float:
+        """Thread-seconds in prepare."""
+        return self.telemetry.seconds("prepare")
+
+    @property
+    def t_device(self) -> float:
+        """Seconds in the device step: from the step's call to the end of
+        its pulls."""
+        return self.telemetry.seconds("device_step")
+
+    @property
+    def t_finalize(self) -> float:
+        """Seconds in host stitch/finalize."""
+        return self.telemetry.seconds("finalize")
+
+    @property
+    def polish_stats(self) -> np.ndarray:
+        """int64 [windows converged, polish iterations, yield bases]."""
+        return self._counters("windows_converged", "polish_iterations",
+                              "polish_yield_bases")
+
+    @property
+    def dc_stats(self) -> np.ndarray:
+        """int64 [windows refined, processed, corrected, ZMWs with a
+        processed window] of the --tpu-dc-polish stage."""
+        return self._counters("dc_windows", "dc_processed", "dc_corrected",
+                              "dc_zmws")
+
+    def _counters(self, *names) -> np.ndarray:
+        return np.array([self.telemetry.counter(n) for n in names], np.int64)
 
     def _load_dc_refine(self):
         """The learned refinement step from dc_model.npz in
@@ -122,7 +152,8 @@ class CcsEngine:
                     model.ctx, model.conf)
         refine = functools.partial(
             refine_chunk, qv_thresh=self.cfg.tpu_dc_qv_thresh,
-            conf_thresh=model.conf, allow_sub=bool(model.sub_ok))
+            conf_thresh=model.conf, allow_sub=bool(model.sub_ok),
+            rec=self.telemetry)
         nets = {d: model.module(d) for d in dict.fromkeys(self.devices)}
         return refine, [functools.partial(refine, nets[d], model.ctx, t)
                         for d, t in zip(self.devices, self.tables_per_device)]
@@ -133,12 +164,8 @@ class CcsEngine:
 
     def prepare_batch(self, zmws: Sequence[ZmwInput]) -> list[ZmwWorkItem]:
         """Host phase: filters/draft/align/window for a batch."""
-        t0 = time.monotonic()
-        try:
+        with self.telemetry.span("prepare"):
             return prepare_many(zmws, self.cfg, self.params, self.control)
-        finally:
-            with self._t_lock:
-                self.t_prepare += time.monotonic() - t0
 
     def finalize_batch(self, items: list[ZmwWorkItem]) -> list[ConsensusResult]:
         """Device phase + stitch: polish all live items, return results."""
@@ -172,33 +199,36 @@ class CcsEngine:
         scatter results back per ZMW, finalize."""
         cfg = self.cfg
         t_cap = cfg.tpu_window_tpl_cap
+        rec = self.telemetry
 
         # rows (item, window index, n_cand) grouped by (coverage bucket,
         # exhaustive?): exhaustive chunks run the dense scorer, default
         # chunks the candidate-sparse one
         by_cb: dict[tuple[int, bool], list[tuple[ZmwWorkItem, int, int]]] = {}
         stage: dict[int, dict] = {}
-        for it in live:
-            b = it.batch
-            exhaustive = (cfg.disable_heuristics
-                          or it.result.has_tandem_repeat)
-            cb = self._c_bucket(int(b.reads.shape[1]))
-            rows = by_cb.setdefault((cb, exhaustive), [])
-            ncand = (b.priority > 0).sum(axis=1)
-            for w in range(len(b.windows)):
-                rows.append((it, w, int(ncand[w])))
-            n = len(b.windows)
-            stage[id(it)] = {
-                "tpl": np.full((n, t_cap), -1, np.int8),
-                "tlen": np.ones(n, np.int32),
-                "cs": np.zeros(n, np.int32),
-                "ce": np.zeros(n, np.int32),
-                "qv": np.zeros((n, t_cap), np.float32),
-                "conv": np.ones(n, bool),
-            }
-            if self._dc_refine is not None:
-                stage[id(it)].update(qv_rq=np.zeros((n, t_cap), np.float32),
-                                     dc_proc=np.zeros(n, bool))
+        with rec.span("pack"):
+            for it in live:
+                b = it.batch
+                exhaustive = (cfg.disable_heuristics
+                              or it.result.has_tandem_repeat)
+                cb = self._c_bucket(int(b.reads.shape[1]))
+                rows = by_cb.setdefault((cb, exhaustive), [])
+                ncand = (b.priority > 0).sum(axis=1)
+                for w in range(len(b.windows)):
+                    rows.append((it, w, int(ncand[w])))
+                n = len(b.windows)
+                stage[id(it)] = {
+                    "tpl": np.full((n, t_cap), -1, np.int8),
+                    "tlen": np.ones(n, np.int32),
+                    "cs": np.zeros(n, np.int32),
+                    "ce": np.zeros(n, np.int32),
+                    "qv": np.zeros((n, t_cap), np.float32),
+                    "conv": np.ones(n, bool),
+                }
+                if self._dc_refine is not None:
+                    stage[id(it)].update(
+                        qv_rq=np.zeros((n, t_cap), np.float32),
+                        dc_proc=np.zeros(n, bool))
 
         for (cb, exhaustive), rows in sorted(by_cb.items(),
                                              key=lambda kv: kv[0]):
@@ -207,31 +237,33 @@ class CcsEngine:
                 take = min(len(rows) - pos, self.w_buckets[-1])
                 chunk = rows[pos:pos + take]
                 pos += take
-                self._collect_chunk(self._submit_chunk(chunk, cb, exhaustive),
-                                    stage)
+                with rec.span("pack"):
+                    args = self._pack_chunk(chunk, cb, exhaustive)
+                with rec.span("device_step"):
+                    pulls = self._step_chunk(args, exhaustive)
+                self._scatter_chunk(chunk, pulls, stage)
 
-        t0 = time.monotonic()
-        for it in live:
-            st = stage[id(it)]
-            try:
-                it.result = finalize_zmw(
-                    it, st["tpl"], st["tlen"], st["cs"], st["ce"],
-                    st["qv"], st["conv"], self.cfg,
-                    qv_rq=st.get("qv_rq"))
-            except Exception:  # noqa: BLE001
-                logger.exception("finalize failed for ZMW %s", it.zmw.hole)
-                it.result.status = ZmwStatus.EXCEPTION_THROWN
-        self.t_finalize += time.monotonic() - t0
+        with rec.span("finalize"):
+            for it in live:
+                st = stage[id(it)]
+                try:
+                    it.result = finalize_zmw(
+                        it, st["tpl"], st["tlen"], st["cs"], st["ce"],
+                        st["qv"], st["conv"], self.cfg,
+                        qv_rq=st.get("qv_rq"))
+                except Exception:  # noqa: BLE001
+                    logger.exception("finalize failed for ZMW %s",
+                                     it.zmw.hole)
+                    it.result.status = ZmwStatus.EXCEPTION_THROWN
         if self._dc_refine is not None:
             # a ZMW is one item, or two under --by-strand / --hd-finder
             holes = {it.zmw.hole for it in live
                      if stage[id(it)]["dc_proc"].any()}
-            with self._t_lock:
-                self.dc_stats[3] += len(holes)
+            rec.count("dc_zmws", len(holes))
 
-    def _submit_chunk(self, chunk, c_pad: int, exhaustive: bool = False):
-        """Build the padded bucket arrays and run the polish step; returns
-        a handle for _collect_chunk."""
+    def _pack_chunk(self, chunk, c_pad: int, exhaustive: bool = False):
+        """The padded bucket arrays of a chunk, the polish step's
+        arguments; sorts ``chunk`` into their row order."""
         cfg = self.cfg
         t_cap = cfg.tpu_window_tpl_cap
         r_cap = cfg.tpu_window_read_cap
@@ -248,7 +280,7 @@ class CcsEngine:
         priority = np.zeros((W, t_cap), np.float32)
 
         # sort rows by (coverage, candidate count, template length), as the
-        # JAX engine does; deterministic (stable sort), and _collect_chunk
+        # JAX engine does; deterministic (stable sort), and _scatter_chunk
         # scatters back by the same list
         chunk.sort(key=lambda row: (min(row[0].batch.reads.shape[1], c_pad),
                                     row[2],
@@ -274,33 +306,40 @@ class CcsEngine:
                 priority[rows] = 1.0
             else:
                 priority[rows] = b.priority[ws]
+        return tpl, tlen, cs, ce, snr_bin, reads, rlens, is_first, priority
 
+    def _step_chunk(self, args, exhaustive: bool) -> list[np.ndarray]:
+        """Run the polish step on a packed chunk and pull its outputs:
+        [stats, tpl, tlen, cs, ce, qv, active] (+ [qv_rq, processed,
+        corrected] with --tpu-dc-polish)."""
         step = self._polish_step_dense if exhaustive else self._polish_step
-        t0 = time.monotonic()
         # with --tpu-dc-polish the step also runs the Revio-shaped learned
         # refinement of low-QV windows (revio.md:29-53) and returns
         # (qv_rq: the model's QVs for the rq stream, processed, corrected);
         # qv is then the Arrow re-score of the refined sequence
-        state, qv, stats, *dc = step(
-            tpl, tlen, cs, ce, snr_bin, reads, rlens, is_first, priority)
-        return chunk, state, qv, stats, dc[0] if dc else (), t0
+        state, qv, stats, *dc = step(*args)
+        with self.telemetry.span("pull"):
+            # one device -> host copy of everything the host needs
+            return [t.cpu().numpy() for t in
+                    (stats, state.tpl, state.tlen, state.core_start,
+                     state.core_end, qv, state.active) + (dc[0] if dc else ())]
 
-    def _collect_chunk(self, handle, stage: dict) -> None:
-        chunk, state, qv, stats, dc, t0 = handle
-        # one device -> host copy of everything the host needs
-        pulls = [t.cpu().numpy() for t in (stats, state.tpl, state.tlen,
-                                           state.core_start, state.core_end,
-                                           qv, state.active) + dc]
+    def _scatter_chunk(self, chunk, pulls, stage: dict) -> None:
+        """Count a polished chunk and write its rows back into ``stage``,
+        per ZMW."""
         s, out_tpl, out_tlen, out_cs, out_ce, out_qv, nonconv = pulls[:7]
-        dt = time.monotonic() - t0
+        dc = pulls[7:]
+        rec = self.telemetry
+        rec.count("windows_polished", len(chunk))
+        # s: [n_converged, total_iters, yield_bases]
+        rec.count("windows_converged", s[0])
+        rec.count("polish_iterations", s[1])
+        rec.count("polish_yield_bases", s[2])
         if dc:
-            out_qv_rq, proc, corrected = pulls[7:]
-        with self._t_lock:
-            self.t_device += dt
-            self.t_busy += dt
-            self.polish_stats += s  # [n_converged, total_iters, yield_bases]
-            if dc:
-                self.dc_stats[:3] += (len(chunk), proc.sum(), corrected.sum())
+            out_qv_rq, proc, corrected = dc
+            rec.count("dc_windows", len(chunk))
+            rec.count("dc_processed", proc.sum())
+            rec.count("dc_corrected", corrected.sum())
 
         by_item: dict[int, list[int]] = {}
         for i, (it, _w, _nc) in enumerate(chunk):

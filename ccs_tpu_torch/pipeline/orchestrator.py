@@ -7,10 +7,17 @@ The copy exists because the original imports the JAX engine at load. Here
 the prepare workers run ``ccs_tpu_torch.pipeline.prepare.prepare_task``,
 whose module imports neither torch nor JAX, so the workers never load the
 device runtime.
+
+Each stage is timed on the engine's ``telemetry`` recorder: ``read`` (the
+reader filling a batch), ``pipeline`` (the calling thread's loop) with its
+``prepare_wait`` (waiting for a batch's prepare), the engine's device
+phase and ``handoff_wait`` (waiting for room in the writer's queue), and
+``write`` (the writer's ``emit``).
 """
 
 from __future__ import annotations
 
+import itertools
 import os
 import queue
 import threading
@@ -65,6 +72,7 @@ def run_pipeline(engine: "CcsEngine",
     order, once per batch. Exceptions from any stage propagate to the
     caller after the pipeline drains.
     """
+    rec = engine.telemetry
     n_threads = num_threads if num_threads > 0 else (os.cpu_count() or 1)
     depth = max(1, input_buffer)
     in_q: queue.Queue = queue.Queue(maxsize=depth)
@@ -101,15 +109,12 @@ def run_pipeline(engine: "CcsEngine",
         return wrapped
 
     def reader():
-        batch: list[ZmwInput] = []
-        for z in zmw_iter:
-            if errors:
+        zmws = iter(zmw_iter)
+        while not errors:
+            with rec.span("read"):
+                batch = list(itertools.islice(zmws, batch_size))
+            if not batch:
                 return
-            batch.append(z)
-            if len(batch) >= batch_size:
-                in_q.put(batch)
-                batch = []
-        if batch:
             in_q.put(batch)
 
     use_procs = bool(getattr(engine.cfg, "tpu_prepare_processes", False)) \
@@ -167,7 +172,8 @@ def run_pipeline(engine: "CcsEngine",
             if got is _DONE:
                 return
             results, n_in = got
-            emit(results, n_in)
+            with rec.span("write"):
+                emit(results, n_in)
 
     stages = [(reader, in_q), (preparer, prep_q), (writer, None)]
     threads = [threading.Thread(target=guard(fn, q), daemon=True,
@@ -176,31 +182,39 @@ def run_pipeline(engine: "CcsEngine",
     for t in threads:
         t.start()
 
+    def next_batch():
+        """The next prepared batch (items, ZMWs in), or None at the end."""
+        got = prep_q.get()
+        if got is _DONE or errors:
+            return None
+        futs, n_in = got
+        items = []
+        for f in futs:
+            r = f.result()
+            if isinstance(r, tuple):   # process worker: (items, dt)
+                part, dt = r
+                rec.add_time("prepare", dt)
+                items.extend(part)
+            else:
+                items.extend(r)
+        return items, n_in
+
     try:
-        while True:
-            got = prep_q.get()
-            if got is _DONE:
-                break
-            if errors:
-                break
-            futs, n_in = got
-            items = []
-            for f in futs:
-                r = f.result()
-                if isinstance(r, tuple):   # process worker: (items, dt)
-                    part, dt = r
-                    with engine._t_lock:
-                        engine.t_prepare += dt
-                    items.extend(part)
-                else:
-                    items.extend(r)
-            results = engine.finalize_batch(items)
-            while not errors:  # don't block forever on a dead writer
-                try:
-                    out_q.put((results, n_in), timeout=1.0)
+        with rec.span("pipeline"):
+            while True:
+                with rec.span("prepare_wait"):
+                    got = next_batch()
+                if got is None:
                     break
-                except queue.Full:
-                    continue
+                items, n_in = got
+                results = engine.finalize_batch(items)
+                with rec.span("handoff_wait"):
+                    while not errors:  # don't block forever on a dead writer
+                        try:
+                            out_q.put((results, n_in), timeout=1.0)
+                            break
+                        except queue.Full:
+                            continue
     finally:
         _signal_done(out_q)
         # unblock producers stuck on full queues, then join

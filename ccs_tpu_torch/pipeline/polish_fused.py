@@ -15,7 +15,9 @@ The JAX ``lax.while_loop`` is a host loop here: its condition costs one
 device-to-host read per iteration. Compaction is a real gather: each
 iteration re-scores only the rows that changed, and the results are
 bit-identical to the uncompacted loop because the scorer's per-row result
-does not depend on the batch. Updates are out of place unless a comment
+does not depend on the batch. The loop's two host waits on the device (the
+condition's read and compaction's ``torch.nonzero``) are ``sync`` spans of
+the caller's ``telemetry`` recorder. Updates are out of place unless a comment
 says otherwise.
 """
 
@@ -25,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from ccs_tpu_torch import telemetry
 from ccs_tpu_torch.ops.hmm_score import score_dense, score_sparse
 from ccs_tpu_torch.ops.tables import load_clean_perr
 
@@ -302,7 +305,7 @@ def polish_windows_fused(tpl, tlen, core_start, core_end, snr_bin, reads,
                          rlens, tables, max_iters: int = 40, is_first=None,
                          priority=None, thresh: float = 0.02,
                          careful_after: int = 6, compact: bool = False,
-                         sparse: bool = False):
+                         sparse: bool = False, rec=None):
     """Exhaustive multi-apply polish until no mutation improves.
 
     Returns (state, qv [B,T], p_err [B,T]). ``priority`` (candidate mask)
@@ -311,6 +314,7 @@ def polish_windows_fused(tpl, tlen, core_start, core_end, snr_bin, reads,
     changed in each iteration (the counterpart of the JAX loop's in-jit
     tail compaction); results are bit-identical either way. After
     ``careful_after`` iterations a window applies one edit at a time.
+    ``rec``: the ``telemetry.Recorder`` of the ``sync`` spans, or None.
     """
     B, T = tpl.shape
     dev = tpl.device
@@ -344,7 +348,8 @@ def polish_windows_fused(tpl, tlen, core_start, core_end, snr_bin, reads,
             # score only the rows that changed; rows not re-scored keep the
             # scores of their unchanged template (in-place writes into
             # fresh copies)
-            rows = torch.nonzero(improved).squeeze(1)
+            with telemetry.span(rec, "sync"):
+                rows = torch.nonzero(improved).squeeze(1)
             lls2, ll2 = s.lls.clone(), s.ll.clone()
             if rows.numel():
                 lls_g, ll_g = score(tpl2[rows], tlen2[rows], pri2[rows],
@@ -376,10 +381,12 @@ def polish_windows_fused(tpl, tlen, core_start, core_end, snr_bin, reads,
         # the loop condition: one device -> host read per iteration
         if B == 0:
             break
-        n_act, it = torch.stack([
+        flags = torch.stack([
             state.active.sum(),
             torch.where(state.active, state.n_iter, 0).amax().long(),
-        ]).tolist()
+        ])
+        with telemetry.span(rec, "sync"):
+            n_act, it = flags.tolist()
         if not (n_act > 0 and it < max_iters):
             break
         state = body(state)

@@ -1,0 +1,14 @@
+"""Seconds of the reader thread's BAM decode and grouping per 1000 ZMWs:
+the ``read`` span's total from the CLI's 'wall split' line, whole run."""
+
+
+def read(obs):
+    try:
+        from ccs_tpu_torch.telemetry import WALL_SPLIT_FIELDS
+    except ImportError:             # a program without the spans
+        return None
+    split = obs.get("wall_split")
+    if not split or len(split) != len(WALL_SPLIT_FIELDS):
+        return None
+    f = dict(zip(WALL_SPLIT_FIELDS, split))
+    return 1000.0 * (f[("read", "s")]) / obs["run_zmws"]

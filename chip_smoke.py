@@ -1048,7 +1048,7 @@ def phase_main_path(sims, workdir):
                         ("second run, warm pool", dt_warm, split_warm)):
         log(f"main path ({name}): {n_in} ZMWs in {t:.3f} s = "
             f"{n_in / t:.2f} ZMW/s; wall split prepare {sp[0]:.3f} "
-            f"thread-s, device {sp[1]:.3f} s, busy {sp[2]:.3f} s, "
+            f"thread-s, device {sp[1]:.3f} s, device wait {sp[2]:.3f} s, "
             f"finalize {sp[3]:.3f} s")
     log(f"main path: {n_pass} SUCCESS, {n_rec} BAM records")
     log(f"kernel launches in the main path: {launches}")
@@ -1206,8 +1206,8 @@ def phase_dc_cli(workdir):
         n_in, n_pass = rep["ZMWs input"], rep["ZMWs pass filters"]
         log(f"DC run (shipped dc_v0, threshold {thresh}, warm pool): {n_in} "
             f"ZMWs in {dt:.3f} s = {n_in / dt:.2f} ZMW/s; wall split prepare "
-            f"{sp[0]:.3f} thread-s, device {sp[1]:.3f} s, busy {sp[2]:.3f} "
-            f"s, finalize {sp[3]:.3f} s")
+            f"{sp[0]:.3f} thread-s, device {sp[1]:.3f} s, device wait "
+            f"{sp[2]:.3f} s, finalize {sp[3]:.3f} s")
         log(f"DC run at QV {thresh}: {n_pass} SUCCESS; {proc} of {wins} "
             f"windows processed ({proc / wins:.5f}), {corr} corrected, in "
             f"{zmws} ZMWs; kernel launches {launches}")

@@ -15,6 +15,7 @@ training step within 1e-5 of the largest magnitude; five Adam steps within
 import dataclasses
 import functools
 import glob
+import json
 import logging
 import os
 
@@ -604,5 +605,10 @@ def test_profile_dir_writes_trace(tmp_path):
     traces = glob.glob(os.path.join(str(trace_dir), "*.trace.json"))
     assert len(traces) == 1
     with open(traces[0]) as fh:
-        text = fh.read()
-    assert '"traceEvents"' in text and "aten::" in text
+        trace = json.load(fh)
+    # the program's spans, on host-thread tracks (on the CPU the trace
+    # holds no device events and no host ops)
+    spans = {e["name"] for e in trace["traceEvents"]
+             if e.get("cat") == "span"}
+    assert {"device_step", "prepare_wait", "pipeline", "read",
+            "write"} <= spans
