@@ -87,10 +87,11 @@ def _tag_array(tag: bytes, sub: bytes, arr: np.ndarray) -> bytes:
 def zmw_record_parts(z) -> list[tuple]:
     """One simulated ZMW as record templates: (name prefix, name suffix,
     body after the name up to the zm tag, tags after it, qs, qe, cx), so
-    that ``write_subreads`` only drops in a hole number."""
+    that ``write_subreads`` only drops in a hole number. A member with
+    kinetics (``z.pws``) gets ``ip`` and ``pw`` as ``B:C`` arrays."""
     parts = []
     qpos = 0
-    for read, cx in zip(z.subreads, z.cx):
+    for p, (read, cx) in enumerate(zip(z.subreads, z.cx)):
         qs, qe = qpos, qpos + len(read)
         qpos = qe + 40
         suffix = f"/{qs}_{qe}".encode() + b"\x00"
@@ -100,6 +101,9 @@ def zmw_record_parts(z) -> list[tuple]:
                 + b"cxC" + struct.pack("<B", cx) + _tag_i(b"np", 1)
                 + _tag_array(b"sn", b"f", np.asarray(z.snr, np.float32))
                 + b"rqf" + struct.pack("<f", 0.8) + b"RGZsim0001\x00")
+        if z.pws is not None:
+            tags += (_tag_array(b"ip", b"C", np.asarray(z.ipds[p], np.uint8))
+                     + _tag_array(b"pw", b"C", np.asarray(z.pws[p], np.uint8)))
         parts.append((l_seq, suffix, body, tags, qs, qe, cx))
     return parts
 

@@ -20,7 +20,11 @@ runs never run this. Plants:
 - ``altered``: one base in 20 of every eighth ZMW's consensus is changed
   where it is made;
 - ``stop_early``: the polish loop stops after ``STOP_EARLY_ITERS``
-  iterations, so windows that need more are left unconverged.
+  iterations, so windows that need more are left unconverged;
+- ``kinetics_one_pass``: each record's kinetics are those of one pass per
+  strand instead of the average of its passes;
+- ``kinetics_strands_swapped``: ``fi``/``fp``/``fn`` are written as
+  ``ri``/``rp``/``rn`` and the other way round.
 """
 
 from __future__ import annotations
@@ -133,9 +137,40 @@ def _altered():
     return undo
 
 
+def _kinetics(change):
+    """Puts ``change(average_kinetics, consensus, entries)`` in place of
+    the program's kinetics averaging, which finalize looks up at each
+    call."""
+    import ccs_tpu_torch.pipeline.kinetics as kin
+    saved = kin.average_kinetics
+    kin.average_kinetics = lambda consensus, entries: change(
+        saved, consensus, entries)
+
+    def undo():
+        kin.average_kinetics = saved
+    return undo
+
+
+def _kinetics_one_pass():
+    def first_per_strand(average, consensus, entries):
+        first: dict = {}
+        for e in entries:
+            first.setdefault(e.strand, e)
+        return average(consensus, list(first.values()))
+    return _kinetics(first_per_strand)
+
+
+def _kinetics_strands_swapped():
+    def swapped(average, consensus, entries):
+        k = average(consensus, entries)
+        return type(k)(fi=k.ri, fp=k.rp, fn=k.rn, ri=k.fi, rp=k.fp, rn=k.fn)
+    return _kinetics(swapped)
+
+
 PLANTS = {"none": None, "bf16": _bf16, "unchanged": _unchanged,
           "half_batch": _half_batch, "altered": _altered,
-          "stop_early": _stop_early}
+          "stop_early": _stop_early, "kinetics_one_pass": _kinetics_one_pass,
+          "kinetics_strands_swapped": _kinetics_strands_swapped}
 
 
 def run_planted(bench: dict, workload: str, seed: int, seconds: float,

@@ -1,7 +1,8 @@
 """Frozen copy of the port's subread simulator and the model it samples.
 
-Copied from ``ccs_tpu_torch/sim/simulator.py`` (``simulate_read``, and
-``simulate_zmw`` with its defaults: full passes, no pulse widths),
+Copied from ``ccs_tpu_torch/sim/simulator.py`` (``simulate_read``,
+``sample_pw_frames``, and ``simulate_zmw`` with full passes, with or without
+pulse widths),
 ``ccs_tpu_torch/models/chemistry.py`` (``default_params``: the simulator's
 generative model is built in code and reads no data file) and
 ``ccs_tpu_torch/ops/dna.py`` (``revcomp``). The benchmark makes its inputs
@@ -76,13 +77,17 @@ def default_params() -> SimParams:
 
 
 def simulate_read(tpl: np.ndarray, params: SimParams, snr_bin: int,
-                  rng: np.random.Generator) -> np.ndarray:
+                  rng: np.random.Generator,
+                  return_classes: bool = False) -> np.ndarray:
     """Draw one read from the generative HMM: at template position j a
-    geometric number of branch/stick insertions, then a match or a delete."""
+    geometric number of branch/stick insertions, then a match or a delete.
+    ``return_classes`` also returns each base's event class (0 match,
+    1 branch, 2 stick); it draws nothing more from ``rng``."""
     tpl = np.asarray(tpl, dtype=np.int64)
     T = len(tpl)
     if T == 0:
-        return np.empty(0, dtype=np.int8)
+        e = np.empty(0, dtype=np.int8)
+        return (e, e.copy()) if return_classes else e
     prev = np.concatenate([tpl[:1], tpl[:-1]])
     ctx = 4 * prev + tpl
     trans = params.trans[snr_bin][ctx]
@@ -111,7 +116,22 @@ def simulate_read(tpl: np.ndarray, params: SimParams, snr_bin: int,
     out[off[parent] + rank] = ins_base
     mj = np.nonzero(leave_match)[0]
     out[off[mj] + k[mj]] = mbase[mj]
-    return out
+    if not return_classes:
+        return out
+    cls = np.empty(int(off[-1]), dtype=np.int8)
+    cls[off[parent] + rank] = np.where(is_branch, 1, 2).astype(np.int8)
+    cls[off[mj] + k[mj]] = 0
+    return out, cls
+
+
+def sample_pw_frames(classes: np.ndarray,
+                     rng: np.random.Generator) -> np.ndarray:
+    """Pulse-width frames per read base, conditioned on the event class:
+    matches ~ 1 + Poisson(18), insertions ~ 1 + Poisson(7)."""
+    classes = np.asarray(classes)
+    lam = np.where(classes == 0, 18.0, 7.0)
+    frames = rng.poisson(lam) + 1
+    return np.clip(frames, 1, 255).astype(np.uint8)
 
 
 @dataclasses.dataclass
@@ -122,13 +142,17 @@ class SimZmw:
     strands: list
     cx: list
     snr: np.ndarray
+    pws: Optional[list] = None      # per subread, pulse-width frames (uint8)
+    ipds: Optional[list] = None     # per subread, IPD codes (uint8); drawn
+    #                                 by the generator, not the simulator
 
 
 def simulate_zmw(hole: int, insert_len: int, n_passes: int,
                  params: Optional[SimParams] = None,
                  rng: Optional[np.random.Generator] = None,
-                 snr: float = 8.0) -> SimZmw:
-    """One ZMW: an insert read ``n_passes`` times on alternating strands."""
+                 snr: float = 8.0, with_pw: bool = False) -> SimZmw:
+    """One ZMW: an insert read ``n_passes`` times on alternating strands;
+    ``with_pw`` draws each base's pulse width after its read."""
     params = params or default_params()
     rng = rng or np.random.default_rng(hole)
     insert = rng.integers(0, 4, size=insert_len).astype(np.int8)
@@ -136,10 +160,16 @@ def simulate_zmw(hole: int, insert_len: int, n_passes: int,
                + rng.normal(0, 0.5, 4).astype(np.float32))
     snr_bin = int(params.snr_bin(float(snr_arr.mean())))
     subreads, strands = [], []
+    pws = [] if with_pw else None
     for p in range(n_passes):
         strand = p % 2
         tpl = revcomp(insert) if strand else insert
-        subreads.append(simulate_read(tpl, params, snr_bin, rng))
+        read, cls = simulate_read(tpl, params, snr_bin, rng,
+                                  return_classes=True)
+        subreads.append(read)
         strands.append(strand)
+        if with_pw:
+            pws.append(sample_pw_frames(cls, rng))
     return SimZmw(hole=hole, insert=insert, subreads=subreads,
-                  strands=strands, cx=[CX_FULL] * n_passes, snr=snr_arr)
+                  strands=strands, cx=[CX_FULL] * n_passes, snr=snr_arr,
+                  pws=pws)

@@ -7,6 +7,10 @@ A traffic file (``ccsbench/traffic/<name>.json``) holds:
 - ``passes``: full passes; the pool's members take the values of this list
   in turn, so every seed gets the same multiset, in another order;
 - ``snr``: the ZMWs' mean SNR;
+- ``kinetics`` (absent: false): every subread carries ``pw`` (pulse widths
+  the simulator draws with its read) and ``ip`` (IPD codes drawn uniform
+  in 4-59, as the port's ``write_subreads_bam`` draws them, from a stream
+  of the seed of their own, so that without kinetics nothing else moves);
 - ``pool_zmws``: distinct ZMWs simulated per run (the BAM repeats them
   under fresh hole numbers; the program keeps no state across ZMWs);
 - ``batch_zmws``: the run's ``--batch-size``;
@@ -45,10 +49,18 @@ def make_pool(traffic: dict, seed: int) -> list:
     cycle = np.array([passes[i % len(passes)] for i in range(n)])
     order = _rng(seed, 0).permutation(n)
     params = sim.default_params()
-    return [sim.simulate_zmw(i, int(traffic["insert_len"]),
+    kinetics = bool(traffic.get("kinetics", False))
+    pool = [sim.simulate_zmw(i, int(traffic["insert_len"]),
                              int(cycle[order[i]]), params=params,
-                             rng=_rng(seed, 1, i), snr=float(traffic["snr"]))
+                             rng=_rng(seed, 1, i), snr=float(traffic["snr"]),
+                             with_pw=kinetics)
             for i in range(n)]
+    if kinetics:
+        for i, z in enumerate(pool):
+            rng = _rng(seed, 2, i)
+            z.ipds = [rng.integers(4, 60, len(r)).astype(np.uint8)
+                      for r in z.subreads]
+    return pool
 
 
 def pool_parts(pool: list) -> list:

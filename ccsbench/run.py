@@ -117,6 +117,12 @@ def main(argv=None) -> int:
           f"({f['hifi_records']} HiFi, {f['distinct_sequences']} distinct; "
           f"{f['edits']} edits, {f['claimed_errors']:.2f} claimed)",
           file=sys.stderr)
+    if "kinetics_mismatch_share" in res["numbers"]:
+        print(f"ccsbench: kinetics: {f['kinetics_records']} distinct records "
+              f"with averaged kinetics, {f['kinetics_breaches']} breaches of "
+              f"their structure, {f['sub_hifi_records_with_kinetics']} of "
+              f"them records under rq 0.99 that carry them",
+              file=sys.stderr)
     for ex in f["breach_examples"]:
         print(f"ccsbench: breach: {ex}", file=sys.stderr)
     checks = {k: {"value": v, "limit": res["limits"][k]}

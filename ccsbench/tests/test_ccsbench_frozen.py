@@ -22,21 +22,25 @@ def test_default_params_equal_the_programs():
         assert np.array_equal(getattr(prog, k), getattr(frozen, k)), k
 
 
+@pytest.mark.parametrize("with_pw", [False, True])
 @pytest.mark.parametrize("passes", [8, 3, 5])
-def test_simulate_zmw_equals_the_programs(passes):
+def test_simulate_zmw_equals_the_programs(passes, with_pw):
     from ccs_tpu_torch.sim import simulator
     for hole in range(3):
         a = simulator.simulate_zmw(
             hole, 400, passes, rng=np.random.default_rng([5, hole]),
-            snr=9.0)
+            snr=9.0, with_pw=with_pw)
         b = sim.simulate_zmw(
             hole, 400, passes, rng=np.random.default_rng([5, hole]),
-            snr=9.0)
+            snr=9.0, with_pw=with_pw)
         assert np.array_equal(a.insert, b.insert)
         assert np.array_equal(a.snr, b.snr)
         assert a.strands == b.strands and a.cx == b.cx
         assert all(np.array_equal(x, y) for x, y in
                    zip(a.subreads, b.subreads))
+        assert (a.pws is None) == (b.pws is None) == (not with_pw)
+        assert all(np.array_equal(x, y) for x, y in
+                   zip(a.pws or [], b.pws or []))
 
 
 def test_pool_is_the_programs_simulation():

@@ -116,14 +116,22 @@ def test_every_cell_reports_enough(bench):
 
 
 def test_limits_files(bench):
-    """Every cell has its own limits, set from its own readings."""
+    """Every cell has its own limits, set from its own readings: one for
+    each number the check reads under its configuration's guarantees."""
+    conf_file = {c["name"]: c["file"] for c in bench["configs"]}
     for w in bench["workloads"]:
         path = os.path.join(tiny.REPO, "ccsbench", "limits",
                             w["name"] + ".json")
         with open(path) as fh:
             limits = json.load(fh)
-        assert set(limits) == {"breaches", "hifi_shortfall",
-                               "hifi_err_per_kb", "hifi_worst_err_per_kb",
-                               "hifi_err_over_claim",
-                               "qv_worst_bin_err_over_claim"}
+        with open(os.path.join(tiny.REPO, conf_file[w["config"]])) as fh:
+            guarantees = json.load(fh)["guarantees"]
+        want = {"breaches", "hifi_shortfall", "hifi_err_per_kb",
+                "hifi_worst_err_per_kb", "hifi_err_over_claim",
+                "qv_worst_bin_err_over_claim"}
+        if guarantees.get("kinetics"):
+            want.add("kinetics_mismatch_share")
+        if guarantees.get("mode_all"):
+            want.add("lowq_err_over_claim")
+        assert set(limits) == want
         assert limits["breaches"] == 0
